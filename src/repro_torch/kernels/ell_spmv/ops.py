@@ -95,13 +95,11 @@ def khat_fused(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
     if not build.on_cuda(name, vals_rows, cols_rows, vals_cols, cols_cols, v):
         return khat_matvec_ref(vals_rows, cols_rows, vals_cols, cols_cols, v,
                                n_nodes)
-    if vals_rows.dtype != vals_cols.dtype:
-        # Mixed payloads: upcast the bf16 side (exact) so one instantiation
-        # of the kernel serves.
-        vals_rows = vals_rows.to(torch.float32)
-        vals_cols = vals_cols.to(torch.float32)
     _check_payload(name, vals_rows, cols_rows, _PAYLOAD)
     _check_payload(name, vals_cols, cols_cols, _PAYLOAD)
+    if vals_rows.dtype != vals_cols.dtype:
+        raise TypeError(f"{name}: row payload {vals_rows.dtype} and column "
+                        f"payload {vals_cols.dtype} differ")
     build.check(name, v, "v", _F32, (1, 2))
     m_r, k_r = vals_rows.shape
     m_c, k_c = vals_cols.shape

@@ -233,6 +233,18 @@ def test_gpu_ell_kernels_match_plain(cuda, r):
 
 
 @pytest.mark.gpu
+def test_gpu_khat_refuses_mixed_payload_dtypes(cuda):
+    """One payload dtype per launch: a bf16 / f32 pair raises, never upcasts."""
+    vals, cols = _payload(np.random.default_rng(5), 30, 6, 40)
+    tv, tc = torch.from_numpy(vals).to(cuda), torch.from_numpy(cols).to(cuda)
+    v = torch.ones((30,), device=cuda)
+    before = dispatch.launch_counts()["khat_fused"]
+    with pytest.raises(TypeError, match="differ"):
+        ops.khat_fused(tv.bfloat16(), tc, tv, tc, v, 40)
+    assert dispatch.launch_counts()["khat_fused"] == before
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("scheme", ["iid", "antithetic", "qmc", "grfspp"])
 def test_gpu_walk_kernel_matches_plain(cuda, scheme):
     from repro_torch.graphs import formats
