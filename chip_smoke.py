@@ -6,14 +6,17 @@
 Phases, each of which must pass (the first failure ends the run with a
 non-zero exit and no result line):
 
-  1. device    card name, `nvidia-smi` name and power limit; build the four
+  1. device    card name, `nvidia-smi` name and power limit; build the five
                CUDA kernels (one nvcc per source, in parallel) and print
                their `-Xptxas -v` registers / spills.
   2. parity    each kernel against its plain PyTorch version on the card at
                ragged shapes (1-D and R in {3, 16}, duplicate columns, zero
-               slots, every walk scheme, an isolated node, bf16 K̂ payloads),
-               plus the walk golden checksums of the JAX reference.
-  3. main path ring(10⁶, k=3), 8 walkers, p_halt 0.2, l_max 5 (K = 48),
+               slots, every walk scheme, an isolated node, bf16 K̂ payloads,
+               gram_block at M_r = 1, K_r != K_c and every main-path shape),
+               the walk golden checksums of the JAX reference, and the four
+               autograd Functions against autograd through the plain
+               versions.
+  3. main      ring(10⁶, k=3), 8 walkers, p_halt 0.2, l_max 5 (K = 48),
                T = 1024 observations, 16 samples: posterior_mean,
                pathwise_samples on the monolithic trace and
                pathwise_samples_chunked (chunk 65536).  Launch counts are set
@@ -24,9 +27,30 @@ non-zero exit and no result line):
                share of the warm wall time is the card's busy share.
   4. e2e       the same path at ring(20000) on the card and on the CPU (plain
                versions), compared.
-  5. timing    each kernel at the main-path shapes with CUDA events: kernel,
-               plain version, library call where one exists, and the bound;
-               printed as one {"kernels": [...]} line.
+  5. fit       fit_hyperparams on the main-path problem (N = 10⁶, T = 1024):
+               20 warm-started steps in two chunks of 10, 8 probes; every
+               step must converge.  One step's forward and backward launches
+               apart, the warm step time and busy share, and three steps on
+               the card against the CPU at N = 2·10⁴.
+  6. serving   ring(10⁶), 16 walkers, p_halt 0.1, l_max 8 (K = 144),
+               capacity 128: ingest 64, observe x3, posterior_moments on
+               256 nodes, GPServeLoop(batch 64) over 512 nodes in requests
+               of 16, thompson_draw over 512 candidates, refit_alpha; first
+               call, warm median, peak memory and launches per call;
+               incremental == from-scratch; card vs CPU at N = 2·10⁴.
+  7. bo        thompson_sampling_incremental (64 initial, 6 rounds, refits
+               at rounds 0 and 5, 512 candidates) and the refit engine's
+               chunked path (2 rounds) at N = 10⁶; ms per round and regret.
+  8. timing    each kernel at the main-path shapes with CUDA events: kernel,
+               plain version, library call where one exists, and the bound
+               (gram_block at each of its six shapes; the K̂ backward and the
+               fused kernel's N·R zeroing at the fit's shape); printed as one
+               {"kernels": [...]} line.
+
+Each path (main, fit, serving, each BO loop) is driven with every launch
+count set to 0 just before it and read just after, and fails if a kernel it
+runs was never launched; a kernel's `launches` in the result line is the
+sum over those runs.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
 without the repository beside this file, it exits non-zero and prints no
@@ -72,12 +96,27 @@ GOLDEN = dict(seed=1214163296, cols_crc=1350745773, lens_crc=1932814751,
 MAIN = dict(n_nodes=1_000_000, ring_k=3, n_walkers=8, p_halt=0.2, l_max=5,
             n_train=1024, sigma_n2=0.05, n_samples=16, chunk=65536)
 E2E = dict(MAIN, n_nodes=20_000, n_train=256, chunk=4096)
+# The fit on the main-path problem: warm-started MLL_DEFAULT, 8 probes.
+FIT = dict(steps=20, chunk=10, n_probes=8)
+# Serving at bench_serving.py's full-mode widths (K = 16·9 = 144 slots) and
+# serve_gp.py's engine defaults (batch 64, requests of 16, 512 nodes).
+SERVE = dict(n_nodes=1_000_000, ring_k=3, n_walkers=16, p_halt=0.1, l_max=8,
+             capacity=128, sigma_n2=0.05, n_ingest=64, n_observe=3,
+             n_moments=256, n_engine=512, batch=64, req=16, n_cand=512)
+BO = dict(n_init=64, rounds=6, refit_every=5, refit_steps=10,
+          n_candidates=512, chunked_rounds=2)
+# gram_block's main-path shapes (M_r, K_r, M_c, K_c): factorisation and
+# refit_alpha, one append, a wave, a moments call, the Thompson cross-Gram
+# and the Thompson q×q Gram.
+GRAM_SHAPES = [(128, 144, 128, 144), (1, 144, 128, 144), (64, 144, 128, 144),
+               (256, 144, 128, 144), (512, 144, 128, 144), (512, 144, 512, 144)]
 
 REPLACES = {
     "walk_sampler": "src/repro/kernels/walk_sampler/walk_sampler.py:59",
     "ell_spmv": "src/repro/kernels/ell_spmv/ell_spmv.py:42",
     "ell_spmv_t": "src/repro/kernels/ell_spmv/ell_spmv_t.py:48",
     "khat_fused": "src/repro/kernels/ell_spmv/khat_fused.py:83",
+    "gram_block": "src/repro/kernels/gram_block/gram_block.py:59",
 }
 
 
@@ -133,7 +172,7 @@ def phase_device(dev) -> str:
     print(f"[device] nvidia-smi: {smi}")
     t0 = time.perf_counter()
     build.build_all()
-    print(f"[build] four kernels built in {time.perf_counter() - t0:.1f} s "
+    print(f"[build] {len(build.SOURCES)} kernels built in {time.perf_counter() - t0:.1f} s "
           f"(nvcc {' '.join(build.NVCC_FLAGS)})")
     for name, lines in build.ptxas_report().items():
         for ln in lines.splitlines():
@@ -359,44 +398,13 @@ def warm_times(calls, dev, reps: int = 3) -> dict[str, float]:
 
 
 def device_busy(calls, dev, labels, warm: dict[str, float]) -> None:
-    """Profile one warm pass; print each call's device busy time (sum of
-    CUDA kernel, memset and memcpy times on the device) and its five largest
-    kernels.  The busy and idle shares divide that time by the call's
-    unprofiled warm wall time ``warm[label]``: the profiler inflates the wall
-    time of the call it traces, so a share of the profiled wall would
-    understate how busy the card is."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    """Run one warm pass of ``calls``, profiling those in ``labels`` (see
+    :func:`profile_busy`)."""
     for label, fn in calls:
-        if label not in labels:
+        if label in labels:
+            profile_busy(label, fn, dev, warm[label])
+        else:
             fn()
-            continue
-        sync(dev)
-        with warnings.catch_warnings():
-            warnings.simplefilter("ignore", UserWarning)  # per-cycle notice
-            with profile(activities=[ProfilerActivity.CPU,
-                                     ProfilerActivity.CUDA]) as prof:
-                t0 = time.perf_counter()
-                fn()
-                sync(dev)
-                wall = time.perf_counter() - t0
-        per_name: dict[str, float] = {}
-        for e in prof.events():
-            if e.device_type == DeviceType.CUDA:
-                per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
-        busy_ms = sum(per_name.values()) / 1e3
-        if busy_ms == 0.0:
-            print(f"[trace] {label}: the profiler saw no device time "
-                  "(device busy share not measured)")
-            continue
-        top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
-        share = busy_ms / (warm[label] * 1e3)
-        print(f"[trace] {label}: device busy {busy_ms:.2f} ms of "
-              f"{warm[label] * 1e3:.2f} ms warm wall ({100 * share:.1f}%), idle "
-              f"share {100 * (1 - share):.1f}% (profiled wall "
-              f"{wall * 1e3:.2f} ms); top: "
-              + "; ".join(f"{n[:48]} {t / 1e3:.3f} ms" for n, t in top))
 
 
 def check_path_outputs(out: dict, cfg: dict, label: str) -> None:
@@ -426,8 +434,8 @@ def phase_main(dev) -> dict:
     dispatch.reset_launch_counts()
     out = run_path(MAIN, dev, dev, timings)
     counts = dispatch.launch_counts()
-    for name, c in counts.items():
-        expect(c > 0, f"main path never launched {name}")
+    for name in ("walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused"):
+        expect(counts[name] > 0, f"main path never launched {name}")
     check_path_outputs(out, MAIN, "main")
     warm = warm_times(out["calls"], dev)
     for label, t in timings.items():
@@ -455,6 +463,569 @@ def phase_e2e(dev) -> None:
         expect(rel <= E2E_RTOL, f"e2e {key}: card vs CPU rel {rel:.2e}")
         print(f"[e2e] {key}: card (kernels) vs CPU (plain) max abs {err:.3e} "
               f"(rel {rel:.2e})")
+
+
+# --------------------------------------------------------------------------
+# Slice 2: cross-Gram and autograd parity, the fit, serving and BO paths
+# --------------------------------------------------------------------------
+
+
+def _gram_payload(rng, m, k, n, dup: bool, zero_frac: float):
+    """Random ELL payload; zero-valued slots carry column 0 (as the walk
+    sampler pads), and with ``dup`` every row repeats columns."""
+    vals = rng.standard_normal((m, k)).astype(np.float32)
+    cols = rng.integers(0, n, (m, k)).astype(np.int32)
+    if dup:
+        cols[:, 1::3] = cols[:, :1]
+    pad = rng.random((m, k)) < zero_frac
+    vals[pad] = 0.0
+    cols[pad] = 0
+    return vals, cols
+
+
+def check_gram_cases(dev) -> None:
+    """gram_block against its plain version at ragged shapes and at every
+    main-path shape, then the four autograd Functions on the card against
+    autograd through their plain versions on the card."""
+    import torch
+
+    from repro_torch.kernels.ell_spmv import ops as eops
+    from repro_torch.kernels.ell_spmv import ref as eref
+    from repro_torch.kernels.gram_block import ops, ref
+
+    rng = np.random.default_rng(12)
+    t = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+    cases = 0
+    # (M_r, K_r, M_c, K_c): M_r = 1; M_c past one 16-row tile; K_r ≠ K_c;
+    # K past one 128-slot shared-memory chunk; then the main-path shapes.
+    shapes = [(1, 7, 9, 5), (37, 13, 300, 7), (70, 200, 33, 150),
+              (16, 129, 17, 130), (3, 1, 1000, 2)] + GRAM_SHAPES
+    for (m_r, k_r, m_c, k_c) in shapes:
+        for dup in (False, True):
+            vr, cr = _gram_payload(rng, m_r, k_r, 5000, dup, 0.3)
+            vc, cc = _gram_payload(rng, m_c, k_c, 5000, dup, 0.3)
+            got = ops.gram_block_raw(t(vr), t(cr), t(vc), t(cc))
+            want = ref.gram_block_ref(t(vr), t(cr), t(vc), t(cc))
+            _, rel = rel_err(got, want)
+            expect(rel <= KERNEL_RTOL,
+                   f"gram_block {m_r}x{k_r} by {m_c}x{k_c} dup={dup}: rel {rel:.2e}")
+            cases += 1
+    empty = ops.gram_block_raw(t(vr[:0]), t(cr[:0]), t(vc), t(cc))
+    expect(tuple(empty.shape) == (0, m_c), "gram_block empty M_r")
+    print(f"[parity] gram_block matches its plain version within {KERNEL_RTOL:g} "
+          f"of scale in {cases} cases (ragged, duplicates, zero slots, "
+          f"M_r = 1, K_r != K_c, every main-path shape)")
+
+    def grads(fn, args, diff, g):
+        ts = list(args)
+        leaves = []
+        for i in diff:
+            ts[i] = ts[i].clone().requires_grad_()
+            leaves.append(ts[i])
+        return torch.autograd.grad(fn(*ts), leaves, g)
+
+    n = 5003
+    vr, cr = map(t, _gram_payload(rng, 300, 48, n, True, 0.3))
+    vc, cc = map(t, _gram_payload(rng, 77, 40, n, True, 0.3))
+    u = t(rng.standard_normal((n, 9)).astype(np.float32))
+    v = t(rng.standard_normal((77, 9)).astype(np.float32))
+    w = t(rng.standard_normal((300, 9)).astype(np.float32))
+    funcs = [
+        ("gram_block", ops.gram_block, ref.gram_block_ref, [vr, cr, vc, cc],
+         (0, 2), (300, 77)),
+        ("ell_spmv", eops.ell_spmv, eref.ell_spmv_ref, [vr, cr, u], (0, 2),
+         (300, 9)),
+        ("ell_spmv_t", lambda a, c, b: eops.ell_spmv_t(a, c, b, n),
+         lambda a, c, b: eref.ell_spmv_t_ref(a, c, b, n), [vr, cr, w], (0, 2),
+         (n, 9)),
+        ("khat_fused", lambda a, ca, b, cb, c: eops.khat_fused(a, ca, b, cb, c, n),
+         lambda a, ca, b, cb, c: eref.khat_matvec_ref(a, ca, b, cb, c, n),
+         [vr, cr, vc, cc, v], (0, 2, 4), (300, 9)),
+    ]
+    for name, fn, plain, args, diff, gshape in funcs:
+        g = t(rng.standard_normal(gshape).astype(np.float32))
+        before = counts_now()
+        got_all = grads(fn, args, diff, g)
+        after = counts_now()
+        print(f"[parity] {name} forward + backward (all cotangents) launched "
+              + json.dumps({k: after[k] - before[k] for k in after
+                            if after[k] != before[k]}))
+        for i, (got, want) in enumerate(zip(got_all,
+                                             grads(plain, args, diff, g))):
+            _, rel = rel_err(got, want)
+            expect(rel <= KERNEL_RTOL,
+                   f"{name} autograd cotangent {diff[i]}: rel {rel:.2e}")
+    print("[parity] autograd: gram_block, ell_spmv, ell_spmv_t and khat_fused "
+          "cotangents on the card match autograd through their plain versions "
+          f"within {KERNEL_RTOL:g} of scale")
+
+
+def reset_counts():
+    from repro_torch.kernels import dispatch
+
+    dispatch.reset_launch_counts()
+
+
+def counts_now() -> dict:
+    from repro_torch.kernels import dispatch
+
+    return dispatch.launch_counts()
+
+
+def gate_counts(label: str, counts: dict, names) -> None:
+    for name in names:
+        expect(counts[name] > 0, f"{label} path never launched {name}")
+    print(f"[{label}] launches over the {label} path: {json.dumps(counts)}")
+
+
+def profile_busy(label: str, fn, dev, warm_s: float) -> dict:
+    """Profile one call of ``fn``; print its device busy time (sum of CUDA
+    kernel, memset and memcpy times on the device) and its five largest
+    kernels.  The busy and idle shares divide that time by the call's
+    unprofiled warm wall time ``warm_s``: the profiler inflates the wall
+    time of the call it traces, so a share of the profiled wall would
+    understate how busy the card is."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)  # per-cycle notice
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            sync(dev)
+            wall = time.perf_counter() - t0
+    per_name: dict[str, float] = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
+    busy_ms = sum(per_name.values()) / 1e3
+    if busy_ms == 0.0:
+        print(f"[trace] {label}: the profiler saw no device time "
+              "(device busy share not measured)")
+        return {}
+    top = sorted(per_name.items(), key=lambda kv: -kv[1])[:5]
+    share = busy_ms / (warm_s * 1e3)
+    print(f"[trace] {label}: device busy {busy_ms:.2f} ms of {warm_s * 1e3:.2f} "
+          f"ms warm wall ({100 * share:.1f}%), idle share "
+          f"{100 * (1 - share):.1f}% (profiled wall {wall * 1e3:.2f} ms); top: "
+          + "; ".join(f"{n[:48]} {tt / 1e3:.3f} ms" for n, tt in top))
+    return dict(busy_ms=busy_ms, idle=1 - share)
+
+
+def fit_problem(cfg: dict, dev):
+    """The fit on the posterior path's problem: (graph, trace_x, mod, y, probes)."""
+    import torch
+
+    from repro_torch.core import modulation, walks
+
+    graph, wcfg, _, train, y = make_problem(cfg, dev)
+    seed = walks.walk_seed(torch.Generator().manual_seed(7))
+    trace_x = walks.sample_walks_for_nodes(graph, train, seed, wcfg.n_walkers,
+                                           wcfg.p_halt, wcfg.l_max)
+    mod = modulation.diffusion(l_max=cfg["l_max"])
+    probes = torch.from_numpy(
+        (np.random.default_rng(5).integers(0, 2, (cfg["n_train"], FIT["n_probes"]))
+         * 2 - 1).astype(np.float32)).to(dev)
+    return graph, trace_x, mod, y, probes
+
+
+def fit_chunk(trace_x, mod, y, n, probes, steps: int, dev, params=None,
+              opt_state=None, v=None):
+    """``steps`` warm-started Adam steps of the fit on the given probes."""
+    import torch
+
+    from repro_torch import solvers
+    from repro_torch.gp import mll
+    from repro_torch.optim import AdamW
+
+    opt = AdamW(lr=0.05)
+    if params is None:
+        params = mll.init_hyperparams(mod, device=dev)
+        opt_state = opt.init(params)
+        v = torch.zeros((y.shape[0], 1 + FIT["n_probes"]), device=dev)
+    return mll._fit_chunk(params, opt_state, None, trace_x, y,
+                          torch.ones_like(y), v, mod=mod, opt=opt, n_nodes=n,
+                          n_probes=FIT["n_probes"], strategy=solvers.MLL_DEFAULT,
+                          chunk=steps, probes=probes)
+
+
+def phase_fit(dev) -> dict:
+    """fit_hyperparams at N = 10⁶ (20 steps in two chunks of 10), one step
+    split into its forward and backward launches, the warm step time, its
+    device busy share, and card vs CPU at N = 2·10⁴."""
+    import torch
+
+    from repro_torch import solvers
+    from repro_torch.core import walks
+    from repro_torch.gp import mll
+
+    n = MAIN["n_nodes"]
+    graph, trace_x, mod, y, probes = fit_problem(MAIN, dev)
+    reset_counts()
+
+    def fit():
+        return mll.fit_hyperparams(
+            trace_x, mod, y, n, torch.Generator(device=dev).manual_seed(11),
+            steps=FIT["steps"], chunk=FIT["chunk"], n_probes=FIT["n_probes"],
+            strategy=solvers.MLL_DEFAULT)
+
+    res, wall, peak = timed_call(fit, dev)
+    counts = counts_now()
+    gate_counts("fit", counts, ("khat_fused", "ell_spmv_t"))
+    for h in res.history:
+        print(f"[fit] step {h['step']:2d}: loss {h['loss']:.4f}, sigma_n2 "
+              f"{h['sigma_n2']:.5f}, cg_iters {h['cg_iters']}, converged "
+              f"{h['cg_converged']}")
+        expect(h["cg_converged"] and np.isfinite(h["loss"]),
+               f"fit step {h['step']} did not converge or has a non-finite loss")
+    expect(len(res.history) == FIT["steps"], "fit history is missing steps")
+    warm_fit = float(np.median([timed_call(fit, dev)[1] for _ in range(3)]))
+    print(f"[fit] fit_hyperparams, {FIT['steps']} steps (2 chunks of "
+          f"{FIT['chunk']}): first call {wall * 1e3:.1f} ms "
+          f"({wall / FIT['steps'] * 1e3:.2f} ms per step), warm median "
+          f"{warm_fit * 1e3:.1f} ms ({warm_fit / FIT['steps'] * 1e3:.2f} ms per "
+          f"step, of 3), max_memory_allocated {peak / 2**20:.0f} MiB")
+
+    # One step, forward and backward apart: the backward's launches.
+    params = mll.init_hyperparams(mod, device=dev)
+    leaves = [params["mod"]["log_beta"], params["mod"]["log_sigma_f"],
+              params["log_sigma_n"]]
+    for leaf in leaves:
+        leaf.requires_grad_(True)
+    v0 = torch.zeros((y.shape[0], 1 + FIT["n_probes"]), device=dev)
+    reset_counts()
+    loss, aux = mll.mll_surrogate_loss(params, None, trace_x, mod, y, n,
+                                       n_probes=FIT["n_probes"],
+                                       strategy=solvers.MLL_DEFAULT,
+                                       probes=probes, x0=v0)
+    fwd = counts_now()
+    torch.autograd.grad(loss, leaves)
+    sync(dev)
+    total = counts_now()
+    bwd = {k: total[k] - fwd[k] for k in total}
+    print(f"[fit] one step: forward launches {json.dumps(fwd)} (CG "
+          f"{aux['cg_iters']} iterations); backward launches {json.dumps(bwd)}")
+    expect(bwd["ell_spmv_t"] > 0, "the fit's backward launched no ell_spmv_t")
+    expect(fwd["khat_fused"] > 0, "the fit's step launched no khat_fused")
+
+    # Warm single-step time (median of 3), and its device busy share.
+    state = fit_chunk(trace_x, mod, y, n, probes, 1, dev)
+
+    def step():
+        return fit_chunk(trace_x, mod, y, n, probes, 1, dev, *state[:3])
+
+    step()
+    walls = [timed_call(step, dev)[1] for _ in range(3)]
+    warm = float(np.median(walls))
+    it = int(step()[3][3][0])
+    print(f"[fit] warm step {warm * 1e3:.2f} ms (median of 3; CG {it} iterations)")
+    busy = profile_busy("fit step", step, dev, warm)
+
+    # Card vs CPU at N = 2·10⁴: three steps on the same probes.
+    cpu = torch.device("cpu")
+    def small_fit(d):
+        graph_d, tx, m, yy, pr = fit_problem(E2E, d)
+        return fit_chunk(tx, m, yy, graph_d.n_nodes, pr, 3, d)[0]
+
+    card, host = small_fit(dev), small_fit(cpu)
+    for name, a, b in (
+            ("log_beta", card["mod"]["log_beta"], host["mod"]["log_beta"]),
+            ("log_sigma_f", card["mod"]["log_sigma_f"], host["mod"]["log_sigma_f"]),
+            ("log_sigma_n", card["log_sigma_n"], host["log_sigma_n"])):
+        err, rel = rel_err(a.cpu().reshape(1), b.reshape(1))
+        expect(rel <= E2E_RTOL, f"fit card vs CPU {name}: rel {rel:.2e}")
+        print(f"[fit] card vs CPU after 3 steps at N={E2E['n_nodes']}: {name} "
+              f"max abs {err:.3e} (rel {rel:.2e})")
+    return dict(counts=counts, warm_step_s=warm, cg_iters=it, busy=busy,
+                trace_x=trace_x, mod=mod, y=y, probes=probes,
+                history=res.history)
+
+
+def serving_problem(cfg: dict, dev):
+    """Graph, walk config, f, σ², walk seed and the node sets of the
+    serving phase, from seeds."""
+    import torch
+
+    from repro_torch.core import modulation, walks
+    from repro_torch.graphs import generators, signals
+
+    n = cfg["n_nodes"]
+    graph = generators.ring(n, k=SERVE["ring_k"], device=dev)
+    wcfg = walks.WalkConfig(SERVE["n_walkers"], SERVE["p_halt"], SERVE["l_max"])
+    mod = modulation.diffusion(l_max=SERVE["l_max"])
+    f = mod(mod.init(device=dev))
+    seed = walks.walk_seed(torch.Generator().manual_seed(9))
+    rng = np.random.default_rng(4)
+    truth = signals.smooth_periodic_ring(n, seed=1)
+    obs = rng.choice(n, SERVE["n_ingest"] + SERVE["n_observe"], replace=False)
+    y = (truth[obs] + 0.1 * rng.standard_normal(len(obs))).astype(np.float32)
+    nodes = dict(
+        moments=rng.choice(n, SERVE["n_moments"], replace=False),
+        engine=rng.choice(n, SERVE["n_engine"], replace=False),
+        cand=rng.choice(n, SERVE["n_cand"], replace=False),
+    )
+    return graph, wcfg, f, seed, obs.astype(np.int32), y, nodes
+
+
+def serving_calls(cfg: dict, dev):
+    """The serving path as (label, zero-argument call) pairs, in order."""
+    import torch
+
+    from repro_torch import serving
+
+    graph, wcfg, f, seed, obs, y, nodes = serving_problem(cfg, dev)
+    s2 = SERVE["sigma_n2"]
+    empty = serving.init_state(graph, seed, f, s2, SERVE["capacity"], wcfg)
+    st = {}
+    m0 = SERVE["n_ingest"]
+
+    def ingest():
+        st["ingested"] = serving.ingest(empty, obs[:m0], y[:m0])
+        return st["ingested"]
+
+    def observe3():
+        s = st["ingested"]
+        for i in range(m0, m0 + SERVE["n_observe"]):
+            s = serving.observe(s, int(obs[i]), float(y[i]))
+        st["state"] = s
+        return s
+
+    def moments():
+        return serving.posterior_moments(
+            st["state"], torch.from_numpy(nodes["moments"]).to(dev))
+
+    def engine():
+        loop = serving.GPServeLoop(st["state"], batch=SERVE["batch"])
+        reqs = [serving.GPRequest(nodes=nodes["engine"][i:i + SERVE["req"]])
+                for i in range(0, SERVE["n_engine"], SERVE["req"])]
+        return loop.run(reqs)
+
+    def draw():
+        return serving.thompson_draw(st["state"], nodes["cand"],
+                                     torch.Generator(device=dev).manual_seed(1))
+
+    def refit_alpha():
+        return serving.refit_alpha(st["state"], f=f * 1.1, sigma_n2=s2 * 1.2,
+                                   return_diagnostics=True)
+
+    calls = [("ingest", ingest), ("observe x3", observe3),
+             ("posterior_moments", moments), ("GPServeLoop.run", engine),
+             ("thompson_draw", draw), ("refit_alpha", refit_alpha)]
+    return calls, st, (empty, obs, y, nodes)
+
+
+def run_serving(cfg: dict, dev, timings: dict | None = None) -> dict:
+    calls, st, extra = serving_calls(cfg, dev)
+    outs = {}
+    for label, fn in calls:
+        before = counts_now()
+        out, wall, peak = timed_call(fn, dev)
+        outs[label] = out
+        if timings is not None:
+            after = counts_now()
+            timings[label] = dict(s=wall, max_mem=peak, launches={
+                k: after[k] - before[k] for k in after if after[k] != before[k]})
+    return dict(outs=outs, st=st, calls=calls, extra=extra)
+
+
+def check_serving(run: dict, cfg: dict, label: str) -> None:
+    import torch
+
+    from repro_torch import serving
+
+    outs, st = run["outs"], run["st"]
+    empty, obs, y, nodes = run["extra"]
+    s = st["state"]
+    m = SERVE["n_ingest"] + SERVE["n_observe"]
+    expect(int(s.count) == m and int(s.rejected) == 0 and int(s.overflow) == 0,
+           f"{label}: state count {int(s.count)} / flags")
+    scratch = serving.ingest(empty, obs, y)
+    for name in ("chol", "alpha"):
+        err, rel = rel_err(getattr(s, name), getattr(scratch, name))
+        expect(rel <= E2E_RTOL, f"{label}: incremental vs ingest {name} rel {rel:.2e}")
+    mean, var = outs["posterior_moments"]
+    expect(bool(torch.isfinite(mean).all() and torch.isfinite(var).all()
+                and (var >= 0).all()), f"{label}: moments not finite / negative var")
+    reqs = outs["GPServeLoop.run"]
+    expect(all(r.done for r in reqs), f"{label}: unanswered engine requests")
+    em = np.concatenate([r.mean for r in reqs])
+    ev = np.concatenate([r.var for r in reqs])
+    wm, wv = serving.posterior_moments(s, torch.from_numpy(nodes["engine"]).to(s.device))
+    for a, b, what in ((em, wm, "mean"), (ev, wv, "var")):
+        _, rel = rel_err(torch.from_numpy(a), b.cpu())
+        expect(rel <= KERNEL_RTOL, f"{label}: engine {what} vs posterior_moments rel {rel:.2e}")
+    draw = outs["thompson_draw"]
+    expect(tuple(draw.shape) == (SERVE["n_cand"], 1) and bool(torch.isfinite(draw).all()),
+           f"{label}: thompson draw {tuple(draw.shape)}")
+    _, iters, conv = outs["refit_alpha"]
+    expect(conv, f"{label}: refit_alpha did not converge ({iters} iterations)")
+    print(f"[{label}] incremental (ingest {SERVE['n_ingest']} + observe x"
+          f"{SERVE['n_observe']}) vs ingest of all {m}: within {E2E_RTOL:g}; "
+          f"variances finite and >= 0 (min {float(var.min()):.3e}); engine == "
+          f"posterior_moments; refit_alpha converged in {iters} iterations")
+
+
+def phase_serving(dev) -> dict:
+    import torch
+
+    from repro_torch.serving import engine, state
+
+    timings: dict = {}
+    reset_counts()
+    run = run_serving(SERVE, dev, timings)
+    counts = counts_now()
+    gate_counts("serving", counts, ("walk_sampler", "gram_block"))
+    check_serving(run, SERVE, "serving")
+    walls: dict[str, list[float]] = {label: [] for label, _ in run["calls"]}
+    for _ in range(3):
+        for label, fn in run["calls"]:
+            walls[label].append(timed_call(fn, dev)[1])
+    warm = {k: float(np.median(v)) for k, v in walls.items()}
+    for label, t in timings.items():
+        print(f"[serving] {label}: first call {t['s'] * 1e3:.2f} ms, warm median "
+              f"{warm[label] * 1e3:.2f} ms (of 3), max_memory_allocated "
+              f"{t['max_mem'] / 2**20:.0f} MiB, launches {json.dumps(t['launches'])}")
+    # One serving wave (64 nodes) for the busy share.
+    s = run["st"]["state"]
+    wave_nodes = torch.from_numpy(run["extra"][3]["engine"][:SERVE["batch"]]).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+
+    def wave():
+        return engine._engine_step(s, wave_nodes, gen)
+
+    wave()
+    wave_warm = float(np.median([timed_call(wave, dev)[1] for _ in range(3)]))
+    print(f"[serving] one wave of {SERVE['batch']}: warm {wave_warm * 1e3:.2f} ms")
+    busy = profile_busy("serving wave", wave, dev, wave_warm)
+
+    # Card vs CPU at N = 2·10⁴.
+    small = dict(SERVE, n_nodes=20_000)
+    cpu = torch.device("cpu")
+    card, host = run_serving(small, dev), run_serving(small, cpu)
+    check_serving(card, small, "serving-e2e-card")
+    check_serving(host, small, "serving-e2e-cpu")
+    a_s, b_s = card["st"]["state"], host["st"]["state"]
+    q = host["extra"][3]["cand"]
+    eps = torch.from_numpy(np.random.default_rng(2).standard_normal(
+        (len(q), 2)).astype(np.float32))
+    pairs = [("chol", a_s.chol, b_s.chol), ("alpha", a_s.alpha, b_s.alpha)]
+    for i, what in enumerate(("mean", "var")):
+        pairs.append((what, card["outs"]["posterior_moments"][i],
+                      host["outs"]["posterior_moments"][i]))
+    pairs.append(("refit_alpha", card["outs"]["refit_alpha"][0].alpha,
+                  host["outs"]["refit_alpha"][0].alpha))
+    draws = []
+    for st_ in (a_s, b_s):
+        tq, vq, mean, v = state._cross_solve(st_, torch.from_numpy(q).to(st_.device))
+        draws.append(engine._joint_draw_tail(tq, vq, mean, v, eps.to(st_.device)))
+    pairs.append(("joint draw (shared normals)", draws[0], draws[1]))
+    for what, a, b in pairs:
+        err, rel = rel_err(a.cpu(), b)
+        expect(rel <= E2E_RTOL, f"serving card vs CPU {what}: rel {rel:.2e}")
+        print(f"[serving] card vs CPU at N=20000: {what} max abs {err:.3e} "
+              f"(rel {rel:.2e})")
+    return dict(counts=counts, timings=timings, warm=warm, state=s,
+                nodes=run["extra"][3], busy=busy, wave_warm=wave_warm)
+
+
+def phase_bo(dev) -> dict:
+    """thompson_sampling_incremental (two refits) and the refit engine's
+    chunked path at N = 10⁶ with the serving widths."""
+    import torch
+
+    from repro_torch import serving
+    from repro_torch.bo import thompson
+    from repro_torch.core import modulation, walks
+    from repro_torch.graphs import generators, signals
+
+    n = SERVE["n_nodes"]
+    graph = generators.ring(n, k=SERVE["ring_k"], device=dev)
+    wcfg = walks.WalkConfig(SERVE["n_walkers"], SERVE["p_halt"], SERVE["l_max"])
+    mod = modulation.diffusion(l_max=SERVE["l_max"])
+    truth = signals.smooth_periodic_ring(n, seed=1)
+    f_max = float(truth.max())
+    out = {}
+    stamps: list[float] = []
+
+    def cb(st):
+        sync(dev)
+        stamps.append(time.perf_counter())
+
+    def loop(engine_name):
+        rng = np.random.default_rng(3)
+
+        def objective(idx):
+            idx = np.asarray(idx)
+            return truth[idx] + 0.1 * rng.standard_normal(len(idx))
+
+        stamps.clear()
+        stamps.append(time.perf_counter())
+        if engine_name == "incremental":
+            return thompson.thompson_sampling_incremental(
+                graph, wcfg, mod, objective, 17, n_init=BO["n_init"],
+                n_steps=BO["rounds"], refit_every=BO["refit_every"],
+                refit_steps=BO["refit_steps"], noise_std=0.1, f_max=f_max,
+                n_candidates=BO["n_candidates"], checkpoint_cb=cb)
+        return thompson.thompson_sampling(
+            None, mod, objective, 17, n_init=BO["n_init"],
+            n_steps=BO["chunked_rounds"], refit_every=BO["refit_every"],
+            refit_steps=BO["refit_steps"], noise_std=0.1, f_max=f_max,
+            graph=graph, walk=wcfg, chunk=MAIN["chunk"], checkpoint_cb=cb)
+
+    for engine_name in ("incremental", "refit-chunked"):
+        need = (("walk_sampler", "gram_block", "khat_fused", "ell_spmv_t")
+                if engine_name == "incremental"
+                else ("walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused"))
+        def run(engine_name=engine_name):
+            return loop(engine_name)
+
+        reset_counts()
+        st, wall, peak = timed_call(run, dev)
+        ms = np.diff(stamps) * 1e3
+        stamps_first = list(stamps)
+        counts = counts_now()
+        gate_counts(f"bo {engine_name}", counts, need)
+        rounds = BO["rounds"] if engine_name == "incremental" else BO["chunked_rounds"]
+        x = st.x_obs
+        expect(len(stamps_first) == rounds + 1 and st.iteration == rounds
+               and st.count == BO["n_init"] + rounds, f"bo {engine_name}: missing round")
+        expect(len(np.unique(x)) == len(x), f"bo {engine_name}: a node was picked twice")
+        leaves = [st.params["log_sigma_n"], *st.params["mod"].values()]
+        expect(all(bool(torch.isfinite(p).all()) for p in leaves),
+               f"bo {engine_name}: non-finite hyperparameters")
+        warm = float(np.median([timed_call(run, dev)[1] for _ in range(3)]))
+        print(f"[bo] {engine_name}: first call {wall * 1e3:.1f} ms, ms per round "
+              + ", ".join(f"{m:.1f}" for m in ms)
+              + f"; warm median {warm * 1e3:.1f} ms (of 3, per round "
+              + ", ".join(f"{m:.1f}" for m in np.diff(stamps) * 1e3)
+              + f" in the last); max_memory_allocated {peak / 2**20:.0f} MiB; "
+              + "regret " + ", ".join(f"{r:.4f}" for r in st.regret)
+              + f"; sigma_n2 {float(torch.exp(2 * st.params['log_sigma_n'])):.4f}")
+        out[engine_name] = dict(counts=counts, ms=ms.tolist(), regret=st.regret)
+
+    # One non-refit incremental round (draw + append) for the busy share.
+    s = serving.init_state(graph, 5, mod(mod.init(device=dev)), 0.05,
+                           BO["n_init"] + 2, wcfg)
+    rng = np.random.default_rng(6)
+    init = rng.choice(n, BO["n_init"], replace=False)
+    s = serving.ingest(s, init, truth[init].astype(np.float32))
+    cand = rng.choice(n, BO["n_candidates"], replace=False).astype(np.int32)
+
+    def bo_round():
+        d = serving.thompson_draw(s, cand, torch.Generator(device=dev).manual_seed(2))
+        pick = int(cand[int(torch.argmax(d[:, 0]))])
+        return serving.observe_batch(s, [pick], [float(truth[pick])])
+
+    bo_round()
+    warm = float(np.median([timed_call(bo_round, dev)[1] for _ in range(3)]))
+    print(f"[bo] one incremental round (draw over {BO['n_candidates']} + append): "
+          f"warm {warm * 1e3:.2f} ms")
+    out["busy"] = profile_busy("bo incremental round", bo_round, dev, warm)
+    out["round_warm"] = warm
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -501,7 +1072,7 @@ def csr(vals, cols, n_cols: int, transpose: bool = False):
         return coo.coalesce().to_sparse_csr()
 
 
-def phase_timing(dev, main: dict) -> list[dict]:
+def phase_timing(dev, results: dict) -> list[dict]:
     import torch
 
     from repro_torch.core import features, walks
@@ -510,10 +1081,17 @@ def phase_timing(dev, main: dict) -> list[dict]:
     from repro_torch.kernels.walk_sampler import ops as wops
     from repro_torch.kernels.walk_sampler import ref as wref
 
+    main = results["main"]
     graph, wcfg, f, train, y = make_problem(MAIN, dev)
     n, s, t = MAIN["n_nodes"], MAIN["n_samples"], MAIN["n_train"]
     seed = main["out"]["seed"]
-    counts = main["counts"]
+    # Launches of each kernel summed over the paths' runs (main, fit,
+    # serving, and the two BO loops), each counted from 0.
+    path_counts = [main["counts"], results["fit"]["counts"],
+                   results["serving"]["counts"],
+                   *(results["bo"][e]["counts"] for e in ("incremental",
+                                                          "refit-chunked"))]
+    counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     nodes = torch.arange(n, dtype=torch.int32, device=dev)
     wkw = dict(n_walkers=wcfg.n_walkers, p_halt=wcfg.p_halt, l_max=wcfg.l_max)
     gargs = (graph.neighbors, graph.weights, graph.deg, nodes, seed)
@@ -609,7 +1187,147 @@ def phase_timing(dev, main: dict) -> list[dict]:
               f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b[0] * 1e3:.3f} us "
               f"({b[1]}), zeroing [N,{s}] f32 alone {zero_ms:.4f} ms, "
               f"max_abs_err {err:.3e} (rel {rel:.2e})")
+    # The library yardstick at the CG shape: the composed torch.sparse.mm
+    # pair Φ_x(Φ_xᵀ α), timed as in 4a.
+    ax = csr(vals_x, cols_x, n)
+    lib = cuda_ms(lambda: torch.sparse.mm(ax, torch.sparse.mm(ax_t, alpha)), 20)
+    print(f"[timing] khat_fused at the CG shape (T={t}, R={s}): library "
+          f"(composed torch.sparse.mm pair) {lib:.4f} ms")
+    del w, vals, cols, a_csr, trace
+    torch.cuda.empty_cache()
+    timing_fit(dev, results["fit"], n)
+    rows.append(timing_gram(dev, results["serving"], counts["gram_block"]))
     return rows
+
+
+def timing_fit(dev, fit: dict, n: int) -> None:
+    """The K̂ backward at the fit's shape, and the share of a fit step that
+    the fused kernel spends zeroing its N·R intermediate."""
+    import torch
+
+    from repro_torch.core import features
+    from repro_torch.gp import mll
+    from repro_torch.kernels.ell_spmv import ops as eops
+    from repro_torch.kernels.ell_spmv import ref as eref
+
+    tx, mod, probes = fit["trace_x"], fit["mod"], fit["probes"]
+    f = mod(mll.init_hyperparams(mod, device=dev)["mod"])
+    vals = features.feature_values(tx, f).contiguous()
+    cols = tx.cols.contiguous()
+    r = probes.shape[1]
+    g = torch.randn(probes.shape, generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev)
+
+    def bwd(fn):
+        a = vals.clone().requires_grad_()
+        y_ = fn(a)
+        return lambda: torch.autograd.grad(y_, a, g, retain_graph=True)[0]
+
+    kern = bwd(lambda a: eops.khat_fused(a, cols, a, cols, probes, n))
+    plain = bwd(lambda a: eref.khat_matvec_ref(a, cols, a, cols, probes, n))
+    err, rel = rel_err(kern(), plain())
+    expect(rel <= KERNEL_RTOL, f"K̂ backward at the fit shape: rel {rel:.2e}")
+    t_x, k = vals.shape
+    nnz = int((vals != 0).sum())
+    # Two scatters Φᵀ into [N, R] (each: payload + R-wide input + N·R output)
+    # and two value-cotangent gathers.
+    b = bound(2 * (t_x * k * 8 + t_x * r * 4 + n * r * 4) + t_x * k * 4,
+              4 * nnz * r)
+    kern_ms = cuda_ms(kern, 50)
+    print(f"[timing] K̂ backward at the fit shape (T={t_x}, K={k}, R={r}, "
+          f"2 x ell_spmv_t + plain value gathers): {kern_ms:.4f} ms, "
+          f"plain {cuda_ms(plain, 10):.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
+          f"max_abs_err {err:.3e} (rel {rel:.2e})")
+    profile_busy("K̂ backward at the fit shape", kern, dev, kern_ms / 1e3)
+    zero = {w: cuda_ms(lambda w=w: torch.zeros((n * w,), device=dev), 100)
+            for w in (1, r, r + 1)}
+    v9 = torch.cat([torch.ones_like(probes[:, :1]), probes], dim=1).contiguous()
+    k9 = cuda_ms(lambda: eops.khat_fused_raw(vals, cols, vals, cols, v9, n), 100)
+    it = fit["cg_iters"]
+    # One warm step: it CG iterations + the warm-start residual at R = 9, and
+    # the surrogate's two matvecs at R = 1 and R = 8.
+    zero_step = (it + 1) * zero[r + 1] + zero[1] + zero[r]
+    print(f"[timing] fit step zeroing: khat_fused at the CG shape (R={r + 1}) "
+          f"{k9:.4f} ms, of which zeroing [N,{r + 1}] f32 {zero[r + 1]:.4f} ms; "
+          f"per warm step ({it} CG iterations) zeroing ~{zero_step:.4f} ms of "
+          f"{fit['warm_step_s'] * 1e3:.3f} ms "
+          f"({100 * zero_step / (fit['warm_step_s'] * 1e3):.1f}%)")
+
+
+def matching_pairs(vals_r, cols_r, vals_c, cols_c, n: int) -> int:
+    """Pairs of non-zero slots, one of each payload, on the same column:
+    Σ_col nnz_r(col)·nnz_c(col), the multiply-adds G = Φ_r Φ_cᵀ needs."""
+    import torch
+
+    def per_col(vals, cols):
+        return torch.bincount(cols[vals != 0].long(), minlength=n)
+
+    return int((per_col(vals_r, cols_r) * per_col(vals_c, cols_c)).sum())
+
+
+def timing_gram(dev, serving_out: dict, launches: int) -> dict:
+    """gram_block at each main-path shape with the serving phase's payloads."""
+    import torch
+
+    from repro_torch.core import features
+    from repro_torch.kernels.gram_block import ops, ref
+    from repro_torch.serving import state as sstate
+
+    st = serving_out["state"]
+    vals_c = st.vals().contiguous()
+    cols_c = st.trace.cols.contiguous()
+    n = st.n_nodes
+    rng = np.random.default_rng(8)
+    rows_of = {}
+    for m in sorted({sh[0] for sh in GRAM_SHAPES}):
+        if m == SERVE["capacity"]:
+            rows_of[m] = (vals_c, cols_c)
+            continue
+        tq = sstate.query_rows(st, torch.from_numpy(
+            rng.choice(n, m, replace=False).astype(np.int32)).to(dev))
+        rows_of[m] = (features.feature_values(tq, st.f).contiguous(),
+                      tq.cols.contiguous())
+    shapes = []
+    for (m_r, k_r, m_c, k_c) in GRAM_SHAPES:
+        vr, cr = rows_of[m_r]
+        vc, cc = (vals_c, cols_c) if m_c == SERVE["capacity"] else rows_of[m_c]
+        got = ops.gram_block_raw(vr, cr, vc, cc)
+        errs = rel_err(got, ref.gram_block_ref(vr, cr, vc, cc))
+        expect(errs[1] <= KERNEL_RTOL,
+               f"gram_block at [{m_r},{k_r}]x[{m_c},{k_c}]: rel {errs[1]:.2e}")
+        reps = 100 if m_r * m_c <= 64 * 128 else 20
+        ms = cuda_ms(lambda: ops.gram_block_raw(vr, cr, vc, cc), reps)
+        pms = cuda_ms(lambda: ref.gram_block_ref(vr, cr, vc, cc),
+                      20 if m_r * m_c <= 64 * 128 else 2, warmup=1)
+        a_r, a_ct = csr(vr, cr, n), csr(vc, cc, n, transpose=True)
+        lib = cuda_ms(lambda: torch.sparse.mm(a_r, a_ct), 10)
+        nnz_r, nnz_c = int((vr != 0).sum()), int((vc != 0).sum())
+        pairs = matching_pairs(vr, cr, vc, cc, n)
+        # Each input read once, G written once; a multiply and an add
+        # (2 float32 operations) per pair of non-zero slots whose columns
+        # match: what G = Φ_r Φ_cᵀ needs on these inputs.
+        b = bound((m_r * k_r + m_c * k_c) * 8 + m_r * m_c * 4, 2 * pairs)
+        # The kernel's own design compares every pair of slots: its work,
+        # printed beside the bound, not used for it.
+        design = bound(0, 2 * m_r * m_c * k_r * k_c)[0]
+        print(f"[timing] gram_block [{m_r},{k_r}]x[{m_c},{k_c}] (nnz {nnz_r} x "
+              f"{nnz_c}, matching pairs {pairs}): kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, bound {b[0]:.6f} ms ({b[1]}; design work of "
+              f"{m_r * m_c * k_r * k_c} slot compares {design:.4f} ms), library "
+              f"(torch.sparse.mm CSR x CSR) {lib:.4f} ms, max_abs_err "
+              f"{errs[0]:.3e} (rel {errs[1]:.2e})")
+        shapes.append(dict(shape=[m_r, k_r, m_c, k_c], ms=ms, plain_ms=pms,
+                           bound_ms=b[0], bound_by=b[1], library_ms=lib,
+                           max_abs_err=errs[0], matching_pairs=pairs,
+                           design_ops_ms=design))
+    head = shapes[-1]   # the Thompson q×q Gram, the largest main-path call
+    return dict(name="gram_block", route="cuda",
+                source="src/repro_torch/kernels/csrc/gram_block.cu",
+                replaces=REPLACES["gram_block"], launches=launches,
+                max_abs_err=max(x["max_abs_err"] for x in shapes),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], shapes=shapes)
 
 
 # --------------------------------------------------------------------------
@@ -640,8 +1358,12 @@ def main() -> int:
         ("device", lambda: phase_device(dev)),
         ("parity-walk", lambda: check_walk_cases(dev)),
         ("parity-ell", lambda: check_kernel_cases(dev)),
+        ("parity-gram", lambda: check_gram_cases(dev)),
         ("main", lambda: phase_main(dev)),
         ("e2e", lambda: phase_e2e(dev)),
+        ("fit", lambda: phase_fit(dev)),
+        ("serving", lambda: phase_serving(dev)),
+        ("bo", lambda: phase_bo(dev)),
     ]
     results = {}
     for name, fn in phases:
@@ -654,12 +1376,12 @@ def main() -> int:
             return 1
         print(f"[phase] {name} ok in {time.perf_counter() - t0:.1f} s")
     try:
-        kernels = phase_timing(dev, results["main"])
+        kernels = phase_timing(dev, results)
     except Exception:
         traceback.print_exc()
         print("chip_smoke: phase timing FAILED", file=sys.stderr)
         return 1
-    expect(len(kernels) == 4, "timing rows missing")
+    expect(len(kernels) == len(REPLACES), "timing rows missing")
     print(f"[phase] all phases ok in {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

@@ -23,8 +23,15 @@ from .walks import WalkConfig, WalkTrace
 
 
 def feature_values(trace: WalkTrace, f: torch.Tensor) -> torch.Tensor:
-    """vals[i,k] = loads[i,k] * f[lens[i,k]] — the GRF entries (Alg. 1 line 8)."""
-    return trace.loads.to(f.dtype) * f[trace.lens]
+    """vals[i,k] = loads[i,k] * f[lens[i,k]] — the GRF entries (Alg. 1 line 8).
+
+    ``index_select`` rather than ``f[lens]``: its backward is an atomic
+    ``index_add_``, while advanced indexing backpropagates through a
+    sort-based accumulate that serialises on the l_max+1 distinct lengths
+    (most of the fit's device time on the card; PERF.md)."""
+    lens = trace.lens
+    return trace.loads.to(f.dtype) * torch.index_select(
+        f, 0, lens.reshape(-1)).reshape(lens.shape)
 
 
 def phi_matvec(trace: WalkTrace, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

@@ -1,8 +1,11 @@
 from . import mll, posterior  # noqa: F401
 from .mll import (  # noqa: F401
+    FitResult,
+    fit_hyperparams,
     init_hyperparams,
     make_h_matvec,
     make_h_operator,
+    mll_surrogate_loss,
     noise_var,
 )
 from .posterior import (  # noqa: F401

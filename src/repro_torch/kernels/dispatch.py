@@ -8,13 +8,19 @@ variable, global or context that sends a CUDA tensor to the plain version
 (the JAX registry's ``REPRO_SPMV_BACKEND`` has no counterpart here).
 
 vals/cols are the ELL payload ([M, K]); the dense operand is [N] or [N, R].
+Every product is differentiable in its values and its dense operand
+(autograd Functions in the kernels' ``ops.py``); the casts here stay
+differentiable around them.
 """
 from __future__ import annotations
 
 import torch
 
 from .ell_spmv import ops as ell_ops
+from .gram_block import ops as gram_ops
 from .walk_sampler import ops as walk_ops
+
+_COUNTERS = (walk_ops.LAUNCHES, ell_ops.LAUNCHES, gram_ops.LAUNCHES)
 
 
 def _f32(vals: torch.Tensor) -> torch.Tensor:
@@ -47,6 +53,13 @@ def khat_matvec(vals_rows, cols_rows, vals_cols, cols_cols, v, n_nodes: int):
     )
 
 
+def gram_block(vals_rows, cols_rows, vals_cols, cols_cols):
+    """G = Φ_rows Φ_colsᵀ [M_r, M_c] between two ELL payloads — the N-free
+    sparse×sparse cross-Gram (duplicate deposit columns exact)."""
+    return gram_ops.gram_block(_f32(vals_rows), cols_rows.contiguous(),
+                               _f32(vals_cols), cols_cols.contiguous())
+
+
 def walk_sample(neighbors, weights, deg, nodes, seed: int, *, n_walkers: int,
                 p_halt: float, l_max: int, reweight: bool = True,
                 scheme: str = "iid"):
@@ -64,10 +77,10 @@ def walk_sample(neighbors, weights, deg, nodes, seed: int, *, n_walkers: int,
 
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
-    return {**walk_ops.LAUNCHES, **ell_ops.LAUNCHES}
+    return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def reset_launch_counts() -> None:
-    for counts in (walk_ops.LAUNCHES, ell_ops.LAUNCHES):
+    for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0

@@ -4,9 +4,19 @@
 ``khat_fused`` (csrc/khat_fused.cu).  Each runs its plain version (ref.py)
 on CPU tensors and launches its kernel on CUDA tensors — on PyTorch's
 current stream, after checking device, dtype, shape and contiguity — or
-raises.  Forward only: the autograd Functions that mirror the JAX custom
-VJPs (``repro/kernels/ell_spmv/ops.py:52/77/105``) come with the training
-path.
+raises.  Those are the ``*_raw`` functions.  The public ``ell_spmv``,
+``ell_spmv_t`` and ``khat_fused`` wrap them in ``torch.autograd.Function``s
+that mirror the JAX custom VJPs (``repro/kernels/ell_spmv/ops.py:52/77/105``):
+all three products are linear in the ELL values and in the dense operand,
+and each dense cotangent is itself one of the products, so the backward runs
+on the same kernels (Φᵀg for Φ, Φg for Φᵀ; for K̂ two Φᵀ scatters and the
+fused K̂ with the roles swapped).  The value cotangent ``_dvals``
+(cot[m]·dense[cols[m,k]]) is plain PyTorch, as the JAX package computes it
+outside any Pallas kernel.  A backward computes only the cotangents autograd
+asks for (``needs_input_grad``), which is what XLA's dead-code elimination
+leaves of the JAX VJP; the hyperparameter fit differentiates the values
+only, so its K̂ backward is the two scatters.  Gradients flow through f32
+payloads; bf16 payloads appear only in solves under ``torch.no_grad()``.
 """
 from __future__ import annotations
 
@@ -43,8 +53,8 @@ def _width(x) -> int:
     return 1 if x.dim() == 1 else x.shape[1]
 
 
-def ell_spmv(vals: torch.Tensor, cols: torch.Tensor,
-             u: torch.Tensor) -> torch.Tensor:
+def ell_spmv_raw(vals: torch.Tensor, cols: torch.Tensor,
+                 u: torch.Tensor) -> torch.Tensor:
     """y = Φ u: vals f32[M, K], cols i32[M, K], u f32[N(, R)] → f32[M(, R)]."""
     name = "ell_spmv"
     if not build.on_cuda(name, vals, cols, u):
@@ -62,8 +72,8 @@ def ell_spmv(vals: torch.Tensor, cols: torch.Tensor,
     return y
 
 
-def ell_spmv_t(vals: torch.Tensor, cols: torch.Tensor, v: torch.Tensor,
-               n_nodes: int) -> torch.Tensor:
+def ell_spmv_t_raw(vals: torch.Tensor, cols: torch.Tensor, v: torch.Tensor,
+                   n_nodes: int) -> torch.Tensor:
     """u = Φᵀ v: vals f32[M, K], cols i32[M, K], v f32[M(, R)] → f32[N(, R)]."""
     name = "ell_spmv_t"
     if not build.on_cuda(name, vals, cols, v):
@@ -83,9 +93,9 @@ def ell_spmv_t(vals: torch.Tensor, cols: torch.Tensor, v: torch.Tensor,
     return out
 
 
-def khat_fused(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
-               vals_cols: torch.Tensor, cols_cols: torch.Tensor,
-               v: torch.Tensor, n_nodes: int) -> torch.Tensor:
+def khat_fused_raw(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
+                   vals_cols: torch.Tensor, cols_cols: torch.Tensor,
+                   v: torch.Tensor, n_nodes: int) -> torch.Tensor:
     """y = Φ_rows (Φ_colsᵀ v) in one launch; payloads f32 or bf16.
 
     vals_rows [M_r, K_r], vals_cols [M_c, K_c], v f32[M_c(, R)] →
@@ -118,3 +128,100 @@ def khat_fused(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
            int(vals_rows.dtype == torch.bfloat16), build.stream(dev))
     LAUNCHES[name] += 1
     return y
+
+
+# --- autograd ---------------------------------------------------------------
+
+
+def _dvals(cot_rows, cols, dense):
+    """∂⟨cot, Φ·⟩/∂vals[m,k] = cot[m]·dense[cols[m,k]] (Σ_r for several
+    right-hand sides) — plain PyTorch, like the JAX package's ``_dvals``."""
+    gathered = dense[cols.long()]  # [M, K] or [M, K, R]
+    if dense.dim() == 1:
+        return cot_rows[:, None] * gathered
+    return torch.einsum("mr,mkr->mk", cot_rows, gathered)
+
+
+def _f32c(x):
+    return x.to(torch.float32).contiguous()
+
+
+class _SpmvFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, cols, u):
+        ctx.save_for_backward(vals, cols, u)
+        return ell_spmv_raw(vals, cols, u)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, cols, u = ctx.saved_tensors
+        g = _f32c(g)
+        d_vals = d_u = None
+        if ctx.needs_input_grad[0]:
+            d_vals = _dvals(g, cols, u).to(vals.dtype)
+        if ctx.needs_input_grad[2]:
+            d_u = ell_spmv_t_raw(vals, cols, g, u.shape[0])
+        return d_vals, None, d_u
+
+
+class _SpmvTFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals, cols, v, n_nodes):
+        ctx.save_for_backward(vals, cols, v)
+        return ell_spmv_t_raw(vals, cols, v, n_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals, cols, v = ctx.saved_tensors
+        g = _f32c(g)
+        d_vals = d_v = None
+        if ctx.needs_input_grad[0]:
+            d_vals = _dvals(v, cols, g).to(vals.dtype)
+        if ctx.needs_input_grad[2]:
+            d_v = ell_spmv_raw(vals, cols, g)
+        return d_vals, None, d_v, None
+
+
+class _KhatFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals_g, cols_g, vals_s, cols_s, v, n_nodes):
+        ctx.save_for_backward(vals_g, cols_g, vals_s, cols_s, v)
+        ctx.n_nodes = n_nodes
+        return khat_fused_raw(vals_g, cols_g, vals_s, cols_s, v, n_nodes)
+
+    @staticmethod
+    def backward(ctx, g):
+        # y = Φg u, u = Φsᵀ v.  Cotangents (recomputed with the kernels):
+        #   d_v      = Φs Φgᵀ g             (fused, roles swapped)
+        #   d_vals_g = g ⊙ u[cols_g],  u = Φsᵀ v
+        #   d_vals_s = v ⊙ w[cols_s],  w = Φgᵀ g
+        vals_g, cols_g, vals_s, cols_s, v = ctx.saved_tensors
+        n = ctx.n_nodes
+        g = _f32c(g)
+        d_g = d_s = d_v = None
+        if ctx.needs_input_grad[0]:
+            u = ell_spmv_t_raw(_f32c(vals_s), cols_s, v, n)
+            d_g = _dvals(g, cols_g, u).to(vals_g.dtype)
+        if ctx.needs_input_grad[2]:
+            w = ell_spmv_t_raw(_f32c(vals_g), cols_g, g, n)
+            d_s = _dvals(v, cols_s, w).to(vals_s.dtype)
+        if ctx.needs_input_grad[4]:
+            d_v = khat_fused_raw(vals_s, cols_s, vals_g, cols_g, g, n)
+        return d_g, None, d_s, None, d_v, None
+
+
+def ell_spmv(vals, cols, u) -> torch.Tensor:
+    """Differentiable y = Φ u (see :func:`ell_spmv_raw`)."""
+    return _SpmvFn.apply(vals, cols, u)
+
+
+def ell_spmv_t(vals, cols, v, n_nodes: int) -> torch.Tensor:
+    """Differentiable u = Φᵀ v (see :func:`ell_spmv_t_raw`)."""
+    return _SpmvTFn.apply(vals, cols, v, n_nodes)
+
+
+def khat_fused(vals_rows, cols_rows, vals_cols, cols_cols, v,
+               n_nodes: int) -> torch.Tensor:
+    """Differentiable y = Φ_rows (Φ_colsᵀ v) (see :func:`khat_fused_raw`)."""
+    return _KhatFn.apply(vals_rows, cols_rows, vals_cols, cols_cols, v,
+                         n_nodes)

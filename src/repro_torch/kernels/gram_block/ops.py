@@ -1,0 +1,86 @@
+"""Wrapper of the cross-Gram CUDA kernel (csrc/gram_block.cu) and its
+autograd Function.
+
+``gram_block_raw`` runs the plain version (ref.py) on CPU tensors and
+launches the kernel on CUDA tensors — on PyTorch's current stream, after
+checking device, dtype, shape and contiguity — or raises.
+:func:`gram_block` wraps it in a ``torch.autograd.Function`` that mirrors
+the JAX custom VJP (``repro/kernels/gram_block/ops.py:42``): G is bilinear
+in the two value payloads and each cotangent is a weighted sparse lookup,
+
+    d_vals_rows[i,k] = Σ_j g[i,j] · Φ_cols[j, cols_rows[i,k]]
+    d_vals_cols[j,l] = Σ_i g[i,j] · Φ_rows[i, cols_cols[j,l]],
+
+computed by the plain ``gram_lookup_ref`` on both sides, as the JAX package
+does (it has no Pallas kernel for the backward either).
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from .. import build
+from .ref import gram_block_ref, gram_lookup_ref
+
+# Kernel launches since the last reset (chip_smoke.py reads it).
+LAUNCHES = {"gram_block": 0}
+
+_F32 = (torch.float32,)
+_I32 = (torch.int32,)
+_VP = ctypes.c_void_p
+_ARGS = [_VP] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+                     ctypes.c_int, _VP]
+
+
+def _check(name, vals, cols, side):
+    build.check(name, vals, f"vals_{side}", _F32, (2,))
+    build.check(name, cols, f"cols_{side}", _I32, (2,))
+    if vals.shape != cols.shape:
+        raise ValueError(f"{name}: vals_{side} {tuple(vals.shape)} and "
+                         f"cols_{side} {tuple(cols.shape)} differ")
+
+
+def gram_block_raw(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
+                   vals_cols: torch.Tensor, cols_cols: torch.Tensor) -> torch.Tensor:
+    """G = Φ_rows Φ_colsᵀ: f32/i32 [M_r, K_r] × [M_c, K_c] → f32[M_r, M_c]."""
+    name = "gram_block"
+    if not build.on_cuda(name, vals_rows, cols_rows, vals_cols, cols_cols):
+        return gram_block_ref(vals_rows, cols_rows, vals_cols, cols_cols)
+    _check(name, vals_rows, cols_rows, "rows")
+    _check(name, vals_cols, cols_cols, "cols")
+    m_r, k_r = vals_rows.shape
+    m_c, k_c = vals_cols.shape
+    dev = vals_rows.device
+    out = torch.empty((m_r, m_c), dtype=torch.float32, device=dev)
+    if m_r == 0 or m_c == 0:
+        return out
+    fn = build.bind(name, "gram_block_launch", _ARGS)
+    with torch.cuda.device(dev):
+        fn(build.ptr(vals_rows), build.ptr(cols_rows), build.ptr(vals_cols),
+           build.ptr(cols_cols), build.ptr(out), m_r, k_r, m_c, k_c,
+           build.stream(dev))
+    LAUNCHES[name] += 1
+    return out
+
+
+class _GramFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, vals_rows, cols_rows, vals_cols, cols_cols):
+        ctx.save_for_backward(vals_rows, cols_rows, vals_cols, cols_cols)
+        return gram_block_raw(vals_rows, cols_rows, vals_cols, cols_cols)
+
+    @staticmethod
+    def backward(ctx, g):
+        vals_rows, cols_rows, vals_cols, cols_cols = ctx.saved_tensors
+        d_rows = d_cols = None
+        if ctx.needs_input_grad[0]:
+            d_rows = gram_lookup_ref(g, vals_cols, cols_cols, cols_rows)
+        if ctx.needs_input_grad[2]:
+            d_cols = gram_lookup_ref(g.T, vals_rows, cols_rows, cols_cols)
+        return d_rows, None, d_cols, None
+
+
+def gram_block(vals_rows, cols_rows, vals_cols, cols_cols) -> torch.Tensor:
+    """Differentiable G = Φ_rows Φ_colsᵀ (kernel forward, plain lookups back)."""
+    return _GramFn.apply(vals_rows, cols_rows, vals_cols, cols_cols)

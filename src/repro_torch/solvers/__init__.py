@@ -8,6 +8,7 @@ from .cg import (  # noqa: F401
     make_preconditioner,
     solve,
 )
+from .slq import rademacher  # noqa: F401
 from .strategy import (  # noqa: F401
     AUTO_RANKS,
     DEFAULT_PRECOND_RANK,
