@@ -6,16 +6,17 @@
 Phases, each of which must pass (the first failure ends the run with a
 non-zero exit and no result line):
 
-  1. device    card name, `nvidia-smi` name and power limit; build the five
+  1. device    card name, `nvidia-smi` name and power limit; build the six
                CUDA kernels (one nvcc per source, in parallel) and print
                their `-Xptxas -v` registers / spills.
   2. parity    each kernel against its plain PyTorch version on the card at
                ragged shapes (1-D and R in {3, 16}, duplicate columns, zero
                slots, every walk scheme, an isolated node, bf16 K̂ payloads,
-               gram_block at M_r = 1, K_r != K_c and every main-path shape),
-               the walk golden checksums of the JAX reference, and the four
-               autograd Functions against autograd through the plain
-               versions.
+               gram_block at M_r = 1, K_r != K_c and every main-path shape,
+               woodbury_apply over T in {1, 37, 4000}, r in 1..256, R in
+               1-D..64 and scalar / vector / masked D⁻¹), the walk golden
+               checksums of the JAX reference, and the five autograd
+               Functions against autograd through the plain versions.
   3. main      ring(10⁶, k=3), 8 walkers, p_halt 0.2, l_max 5 (K = 48),
                T = 1024 observations, 16 samples: posterior_mean,
                pathwise_samples on the monolithic trace and
@@ -41,13 +42,27 @@ non-zero exit and no result line):
   7. bo        thompson_sampling_incremental (64 initial, 6 rounds, refits
                at rounds 0 and 5, 512 candidates) and the refit engine's
                chunked path (2 rounds) at N = 10⁶; ms per round and regret.
-  8. timing    each kernel at the main-path shapes with CUDA events: kernel,
+  8. solvers   bench_solvers.py's clustered block at its full-mode width:
+               ring(10⁶), K = 144, T = 4000 contiguous nodes, β = 4,
+               σ_f = 25, σ² = 1e-2, tol 1e-6: solvers.solve under none,
+               jacobi, nystrom (rank 128), auto, bf16 jacobi and nystrom,
+               the Nyström build and a prebuilt solve apart, a warm start
+               after f ← 1.02·f against the cold solve, exact_lml (32 probes
+               x 64 SLQ iterations), 5 fit steps under nystrom (R = 9) and
+               pathwise_samples_chunked under nystrom (R = 16).  Gates:
+               convergence, agreement with "none", woodbury_apply launches
+               = iterations + 1, gram_block launches = rank per build, SLQ
+               within 5 % of the dense float64 log-det; card vs CPU at
+               N = 2·10⁴ on the Nyström solve and exact_lml.
+  9. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
-               (gram_block at each of its six shapes; the K̂ backward and the
-               fused kernel's N·R zeroing at the fit's shape); printed as one
-               {"kernels": [...]} line.
+               (gram_block at each of its six shapes; woodbury_apply at
+               T = 4000 for r in {64, 128, 256} and R in {1, 9, 16}; the K̂
+               backward and the fused kernel's N·R zeroing at the fit's
+               shape; the fused kernel at the solvers' CG shape); printed as
+               one {"kernels": [...]} line.
 
-Each path (main, fit, serving, each BO loop) is driven with every launch
+Each path (main, fit, serving, each BO loop, solvers) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
 runs was never launched; a kernel's `launches` in the result line is the
 sum over those runs.
@@ -105,6 +120,15 @@ SERVE = dict(n_nodes=1_000_000, ring_k=3, n_walkers=16, p_halt=0.1, l_max=8,
              n_moments=256, n_engine=512, batch=64, req=16, n_cand=512)
 BO = dict(n_init=64, rounds=6, refit_every=5, refit_steps=10,
           n_candidates=512, chunked_rounds=2)
+# The Nyström/SLQ stack on bench_solvers.py's operating point at its
+# full-mode walker width (K = 16·9 = 144): T = 4√N contiguous ring nodes.
+SOLVE = dict(n_nodes=1_000_000, ring_k=3, n_walkers=16, p_halt=0.1, l_max=8,
+             beta=4.0, sigma_f=25.0, sigma_n2=1e-2, tol=1e-6, max_iters=3000,
+             rank=128, lml_probes=32, slq_iters=64, fit_steps=5, fit_probes=8,
+             n_samples=16, chunk=65536)
+# woodbury_apply's timed shapes at T = 4000: ranks and RHS widths.
+WOOD_RANKS = (64, 128, 256)
+WOOD_COLS = (1, 9, 16)
 # gram_block's main-path shapes (M_r, K_r, M_c, K_c): factorisation and
 # refit_alpha, one append, a wave, a moments call, the Thompson cross-Gram
 # and the Thompson q×q Gram.
@@ -117,6 +141,7 @@ REPLACES = {
     "ell_spmv_t": "src/repro/kernels/ell_spmv/ell_spmv_t.py:48",
     "khat_fused": "src/repro/kernels/ell_spmv/khat_fused.py:83",
     "gram_block": "src/repro/kernels/gram_block/gram_block.py:59",
+    "woodbury_apply": "src/repro/kernels/woodbury_apply/woodbury_apply.py:75",
 }
 
 
@@ -137,6 +162,10 @@ def rel_err(got, want) -> tuple[float, float]:
         if got.numel() else 0.0
     scale = float(torch.max(torch.abs(want.double())).item()) if want.numel() else 0.0
     return err, err / max(scale, 1e-30)
+
+
+def mib(nbytes) -> str:
+    return "n/a" if nbytes is None else f"{nbytes / 2**20:.0f}"
 
 
 def sync(dev) -> None:
@@ -558,6 +587,95 @@ def check_gram_cases(dev) -> None:
     print("[parity] autograd: gram_block, ell_spmv, ell_spmv_t and khat_fused "
           "cotangents on the card match autograd through their plain versions "
           f"within {KERNEL_RTOL:g} of scale")
+
+
+# --------------------------------------------------------------------------
+# Slice 3: the Woodbury apply and the Nyström/SLQ solver stack
+# --------------------------------------------------------------------------
+
+
+def _wood_inputs(rng, t: int, r: int, cols, noise: str):
+    """B [T, r], D⁻¹ [T], a non-symmetric E⁻¹ [r, r] and v [T(, R)].
+
+    ``noise``: "scalar" (one σ²), "vector" (heteroscedastic, with zero-noise
+    rows whose D⁻¹ is 1.0), "masked" (1e6 noise, D⁻¹ = 1e-6, on a third of
+    the rows)."""
+    b = (rng.standard_normal((t, r)) / np.sqrt(r)).astype(np.float32)
+    einv = (rng.standard_normal((r, r)) / np.sqrt(r)).astype(np.float32)
+    if noise == "scalar":
+        dinv = np.full(t, 1.0 / 0.05, np.float32)
+    elif noise == "vector":
+        dinv = (1.0 / rng.uniform(0.01, 1.0, t)).astype(np.float32)
+        dinv[::5] = 1.0
+    else:
+        dinv = np.full(t, 1.0 / 0.05, np.float32)
+        dinv[rng.random(t) < 1 / 3] = 1e-6
+    v = rng.standard_normal((t,) if cols is None else (t, cols)).astype(np.float32)
+    return b, dinv, einv, v
+
+
+def check_woodbury_cases(dev) -> None:
+    """woodbury_apply against its plain version over T x r x R x noise kinds,
+    then its autograd Function (d_v on the kernel with E⁻ᵀ, payload
+    cotangents through the plain version) against autograd through the
+    plain version, all on the card."""
+    import torch
+
+    from repro_torch.kernels.woodbury_apply import ops, ref
+
+    rng = np.random.default_rng(13)
+    t_ = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+    cases = 0
+    worst = 0.0
+    for t in (1, 37, 4000):
+        for r in (1, 7, 64, 128, 256):
+            for cols in (None, 3, 9, 16, 64):
+                for noise in ("scalar", "vector", "masked"):
+                    b, dinv, einv, v = map(t_, _wood_inputs(rng, t, r, cols, noise))
+                    before = ops.LAUNCHES["woodbury_apply"]
+                    got = ops.woodbury_apply_raw(b, dinv, einv, v)
+                    expect(ops.LAUNCHES["woodbury_apply"] == before + 1,
+                           "woodbury_apply_raw did not count one launch")
+                    _, rel = rel_err(got, ref.woodbury_apply_ref(b, dinv, einv, v))
+                    expect(got.shape == v.shape and rel <= KERNEL_RTOL,
+                           f"woodbury_apply T={t} r={r} R={cols} {noise}: "
+                           f"rel {rel:.2e}")
+                    worst = max(worst, rel)
+                    cases += 1
+    # A v wider than one launch's 64 columns runs as two launches.
+    b, dinv, einv, v = map(t_, _wood_inputs(rng, 333, 64, 100, "vector"))
+    before = ops.LAUNCHES["woodbury_apply"]
+    _, rel = rel_err(ops.woodbury_apply_raw(b, dinv, einv, v),
+                     ref.woodbury_apply_ref(b, dinv, einv, v))
+    expect(rel <= KERNEL_RTOL and ops.LAUNCHES["woodbury_apply"] == before + 2,
+           f"woodbury_apply R=100: rel {rel:.2e}")
+    print(f"[parity] woodbury_apply matches its plain version within "
+          f"{KERNEL_RTOL:g} of scale in {cases + 1} cases (T in 1/37/4000, r in "
+          f"1..256, R in 1-D/3/9/16/64/100, scalar/vector/masked D⁻¹; worst "
+          f"rel {worst:.2e})")
+
+    for cols in (None, 9):
+        b, dinv, einv, v = map(t_, _wood_inputs(rng, 4000, 128, cols, "masked"))
+        g = t_(rng.standard_normal(tuple(v.shape)).astype(np.float32))
+        leaves = [x.clone().requires_grad_() for x in (b, dinv, einv, v)]
+        before = ops.LAUNCHES["woodbury_apply"]
+        got_all = torch.autograd.grad(ops.woodbury_apply(*leaves), leaves, g)
+        launched = ops.LAUNCHES["woodbury_apply"] - before
+        expect(launched == 2, f"woodbury_apply forward + d_v launched {launched}")
+        plain = [x.clone().requires_grad_() for x in (b, dinv, einv, v)]
+        want_all = torch.autograd.grad(ref.woodbury_apply_ref(*plain), plain, g)
+        for name, got, want in zip(("b", "dinv", "einv", "v"), got_all, want_all):
+            _, rel = rel_err(got, want)
+            expect(rel <= KERNEL_RTOL,
+                   f"woodbury_apply autograd d_{name} (R={cols}): rel {rel:.2e}")
+        # d_v alone: the same kernel with E⁻ᵀ, no plain-version backward.
+        vv = v.clone().requires_grad_()
+        (d_v,) = torch.autograd.grad(ops.woodbury_apply(b, dinv, einv, vv), vv, g)
+        _, rel = rel_err(d_v, want_all[3])
+        expect(rel <= KERNEL_RTOL, f"woodbury_apply d_v alone: rel {rel:.2e}")
+    print("[parity] woodbury_apply autograd: d_v (the kernel with E⁻ᵀ) and "
+          "d_b, d_dinv, d_einv match autograd through the plain version within "
+          f"{KERNEL_RTOL:g} of scale (R = 1-D and 9; forward + d_v = 2 launches)")
 
 
 def reset_counts():
@@ -1028,6 +1146,315 @@ def phase_bo(dev) -> dict:
     return out
 
 
+def solver_problem(cfg: dict, dev):
+    """bench_solvers.py's operating point at its full-mode walker width:
+    ring(N, k=3), T = 4√N contiguous nodes (correlated rows), diffusion
+    β = 4, σ_f = 25, σ² = 1e-2, b from default_rng(N).  Returns
+    (graph, wcfg, walk seed, f, train, trace_x, h, b)."""
+    import math
+
+    import torch
+
+    from repro_torch.core import linops, modulation, walks
+    from repro_torch.graphs import generators
+
+    n = cfg["n_nodes"]
+    t = min(4 * int(np.sqrt(n)), n // 4)
+    graph = generators.ring(n, k=cfg["ring_k"], device=dev)
+    wcfg = walks.WalkConfig(cfg["n_walkers"], cfg["p_halt"], cfg["l_max"])
+    f = modulation.diffusion(l_max=cfg["l_max"])({
+        "log_beta": torch.tensor(math.log(cfg["beta"]), device=dev),
+        "log_sigma_f": torch.tensor(math.log(cfg["sigma_f"]), device=dev)})
+    seed = walks.walk_seed(torch.Generator().manual_seed(0))
+    train = torch.arange(t, dtype=torch.int32, device=dev)
+    trace_x = walks.sample_walks_for_nodes(graph, train, seed, wcfg.n_walkers,
+                                           wcfg.p_halt, wcfg.l_max)
+    h = linops.shifted(trace_x, f, cfg["sigma_n2"], n)
+    b = torch.from_numpy(np.random.default_rng(n).standard_normal(t)
+                         .astype(np.float32)).to(dev)
+    return graph, wcfg, seed, f, train, trace_x, h, b
+
+
+def solve_strategy(pc: str, **kw):
+    from repro_torch import solvers
+
+    return solvers.SolveStrategy(tol=SOLVE["tol"], max_iters=SOLVE["max_iters"],
+                                 preconditioner=pc, precond_rank=SOLVE["rank"],
+                                 **kw)
+
+
+def dense_logdet64(trace_x, f, sigma_n2: float, n: int) -> float:
+    """log det H in float64 from the dense K̂ = Φ_xΦ_xᵀ, built from a CSR copy
+    of Φ_x with torch.sparse.mm (a check only, never part of the port)."""
+    import torch
+
+    from repro_torch.core import features
+
+    vals = features.feature_values(trace_x, f).double()
+    t, k = vals.shape
+    rows = torch.arange(t, device=vals.device).repeat_interleave(k)
+    cols = trace_x.cols.reshape(-1).long()
+    with warnings.catch_warnings():   # PyTorch's "sparse CSR is beta" notes
+        warnings.simplefilter("ignore", UserWarning)
+        a = torch.sparse_coo_tensor(torch.stack([rows, cols]), vals.reshape(-1),
+                                    (t, n)).coalesce().to_sparse_csr()
+        at = torch.sparse_coo_tensor(torch.stack([cols, rows]), vals.reshape(-1),
+                                     (n, t)).coalesce().to_sparse_csr()
+        khat = torch.sparse.mm(a, at).to_dense()
+    h = khat + sigma_n2 * torch.eye(t, dtype=torch.float64, device=vals.device)
+    sign, logabs = torch.linalg.slogdet(h)
+    expect(float(sign) > 0, "dense H is not positive definite")
+    return float(logabs)
+
+
+def solver_calls(cfg: dict, dev, gen_device):
+    """The solvers phase as (label, zero-argument call) pairs, in order;
+    ``state`` keeps each call's last result."""
+    import torch
+
+    from repro_torch import solvers
+    from repro_torch.core import linops, modulation
+    from repro_torch.gp import mll, posterior
+
+    graph, wcfg, seed, f, train, trace_x, h, b = solver_problem(cfg, dev)
+    n = cfg["n_nodes"]
+    h2 = linops.shifted(trace_x, f * 1.02, cfg["sigma_n2"], n)
+    st: dict = {}
+
+    def solve(pc, **kw):
+        return lambda: solvers.solve(h, b, solve_strategy(pc, **kw))
+
+    def build():
+        return solvers.nystrom_precond(h, rank=cfg["rank"])
+
+    def prebuilt():
+        return solvers.solve(h, b, solve_strategy("nystrom"), precond=st["build"])
+
+    def warm():
+        return solvers.solve(h2, b, solve_strategy("jacobi", warm_start=True),
+                             x0=st["jacobi"].x)
+
+    def cold():
+        return solvers.solve(h2, b, solve_strategy("jacobi"))
+
+    def lml():
+        return mll.exact_lml(trace_x, f, cfg["sigma_n2"], b, n,
+                             torch.Generator(device=gen_device).manual_seed(5),
+                             strategy=solve_strategy("nystrom"),
+                             n_probes=cfg["lml_probes"],
+                             slq_iters=cfg["slq_iters"])
+
+    init = {"mod": {"log_beta": torch.log(torch.tensor(cfg["beta"], device=dev)),
+                    "log_sigma_f": torch.log(torch.tensor(cfg["sigma_f"], device=dev))},
+            "log_sigma_n": torch.log(torch.tensor(cfg["sigma_n2"], device=dev)) / 2}
+    # MLL_DEFAULT caps CG at 256 iterations; this block needs more.
+    fit_strategy = solvers.MLL_DEFAULT.with_(
+        preconditioner="nystrom", precond_rank=cfg["rank"],
+        max_iters=cfg["max_iters"])
+
+    def fit():
+        return mll.fit_hyperparams(
+            trace_x, modulation.diffusion(l_max=cfg["l_max"]), b, n,
+            torch.Generator(device=gen_device).manual_seed(11),
+            steps=cfg["fit_steps"], chunk=cfg["fit_steps"],
+            n_probes=cfg["fit_probes"], init_params=init, strategy=fit_strategy)
+
+    def chunked():
+        return posterior.pathwise_samples_chunked(
+            graph, train, f, cfg["sigma_n2"], b,
+            torch.Generator(device=gen_device).manual_seed(3), seed, wcfg,
+            chunk=cfg["chunk"], n_samples=cfg["n_samples"],
+            strategy=solvers.POSTERIOR_DEFAULT.with_(
+                preconditioner="nystrom", precond_rank=cfg["rank"],
+                max_iters=cfg["max_iters"]),
+            return_diagnostics=True)
+
+    # (label, key of the result in ``st``, call)
+    calls = [("none", "none", solve("none")), ("jacobi", "jacobi", solve("jacobi")),
+             ("nystrom", "nystrom", solve("nystrom")), ("auto", "auto", solve("auto")),
+             ("bf16 jacobi", "bf16 jacobi", solve("jacobi", matvec_dtype="bfloat16")),
+             ("bf16 nystrom", "bf16 nystrom", solve("nystrom", matvec_dtype="bfloat16")),
+             ("nystrom build", "build", build),
+             ("nystrom solve, prebuilt", "prebuilt", prebuilt),
+             ("warm jacobi, f x 1.02", "warm", warm),
+             ("cold jacobi, f x 1.02", "cold", cold),
+             ("exact_lml", "lml", lml), ("fit 5 steps, nystrom", "fit", fit),
+             ("pathwise_samples_chunked, nystrom", "chunked", chunked)]
+
+    def keep(key, fn):
+        def call():
+            st[key] = fn()
+            return st[key]
+        return call
+
+    return ([(label, key, keep(key, fn)) for label, key, fn in calls], st,
+            (h, b, trace_x, f))
+
+
+def check_solves(st: dict, label: str) -> None:
+    """Convergence, agreement with the unpreconditioned solution (5e-3, and
+    5e-2 norm-relative for bf16 payloads, as examples/solver_strategies.py
+    holds them), the warm start, and a finite exact LML."""
+    import torch
+
+    x_none = st["none"].x
+    for key in ("none", "jacobi", "nystrom", "auto", "bf16 jacobi",
+                "bf16 nystrom", "prebuilt", "warm", "cold"):
+        res = st[key]
+        expect(bool(torch.all(res.converged)),
+               f"{label}: solve '{key}' did not converge in {res.iters} iterations")
+    pairs = [(k, "none") for k in ("jacobi", "nystrom", "auto", "prebuilt")]
+    for key, ref in pairs + [("warm", "cold")]:
+        x, x_ref = st[key].x, st[ref].x
+        expect(torch.allclose(x, x_ref, rtol=5e-3, atol=5e-3),
+               f"{label}: '{key}' differs from '{ref}' by "
+               f"{float(torch.max(torch.abs(x - x_ref))):.3e}")
+    for key in ("bf16 jacobi", "bf16 nystrom"):
+        rel = float(torch.linalg.norm(st[key].x - x_none) / torch.linalg.norm(x_none))
+        expect(rel <= 5e-2, f"{label}: '{key}' norm-relative error {rel:.3e}")
+    expect(st["warm"].iters <= st["cold"].iters,
+           f"{label}: warm start took {st['warm'].iters} iterations, cold "
+           f"{st['cold'].iters}")
+    out = st["lml"]
+    expect(out["converged"] and bool(torch.isfinite(out["lml"])),
+           f"{label}: exact_lml not converged or non-finite ({out})")
+
+
+def _describe(key: str, res) -> str:
+    if key in ("build", "lml"):
+        return ""
+    if key == "fit":
+        return "CG iters " + "/".join(str(x["cg_iters"]) for x in res.history) + ", "
+    if key == "chunked":
+        return f"iters {res[1]}, "
+    return f"iters {res.iters}, precond_rank {res.precond_rank}, "
+
+
+def phase_solvers(dev) -> dict:
+    """The Nyström/SLQ stack at N = 10⁶ on bench_solvers.py's clustered
+    block: every strategy solve, a warm start, the exact LML, 5 fit steps
+    and the chunked pathwise samples under "nystrom"; then card vs CPU at
+    N = 2·10⁴."""
+    import torch
+
+    from repro_torch import solvers
+    from repro_torch.gp import mll
+    from repro_torch.solvers import nystrom
+
+    cfg = SOLVE
+    rank = cfg["rank"]
+    calls, st, (h, b, trace_x, f) = solver_calls(cfg, dev, dev)
+    timings = {}
+    reset_counts()
+    for label, key, fn in calls:
+        before = counts_now()
+        _, wall, peak = timed_call(fn, dev)
+        after = counts_now()
+        timings[key] = dict(s=wall, max_mem=peak, launches={
+            k: after[k] - before[k] for k in after if after[k] != before[k]})
+    counts = counts_now()
+    gate_counts("solvers", counts, ("walk_sampler", "ell_spmv", "ell_spmv_t",
+                                    "khat_fused", "gram_block", "woodbury_apply"))
+    check_solves(st, "solvers")
+    launched = lambda key, name: timings[key]["launches"].get(name, 0)  # noqa: E731
+    # A Nyström solve applies M⁻¹ once at init and once per iteration; a
+    # Nyström build takes one gram_block column per pivot.
+    for key in ("nystrom", "bf16 nystrom", "prebuilt"):
+        res = st[key]
+        expect(launched(key, "woodbury_apply") == res.iters + 1,
+               f"solvers: '{key}' launched woodbury_apply "
+               f"{launched(key, 'woodbury_apply')} times in {res.iters} iterations")
+        expect(res.precond_rank == rank, f"solvers: '{key}' rank {res.precond_rank}")
+    for key in ("nystrom", "bf16 nystrom", "build"):
+        expect(launched(key, "gram_block") == rank,
+               f"solvers: '{key}' launched gram_block {launched(key, 'gram_block')} times")
+    expect(launched("prebuilt", "gram_block") == 0,
+           "solvers: the prebuilt solve rebuilt the preconditioner")
+    hist = st["fit"].history
+    expect(len(hist) == cfg["fit_steps"]
+           and all(x["cg_converged"] and np.isfinite(x["loss"]) for x in hist),
+           f"solvers: a fit step did not converge: {hist}")
+    # Each fit step: one Nyström solve at R = 1 + probes, its build.
+    expect(launched("fit", "woodbury_apply") == sum(x["cg_iters"] + 1 for x in hist)
+           and launched("fit", "gram_block") == rank * len(hist),
+           f"solvers: fit launches {timings['fit']['launches']}")
+    samples, it_s, conv_s = st["chunked"]
+    expect(conv_s and tuple(samples.shape) == (cfg["n_nodes"], cfg["n_samples"])
+           and bool(torch.isfinite(samples).all()),
+           f"solvers: chunked samples {tuple(samples.shape)} converged {conv_s}")
+    expect(launched("chunked", "woodbury_apply") == it_s + 1,
+           "solvers: chunked woodbury_apply launches")
+
+    # The SLQ log-det against float64 slogdet of the dense H.
+    dense = dense_logdet64(trace_x, f, cfg["sigma_n2"], cfg["n_nodes"])
+    lml = st["lml"]
+    slq = float(lml["logdet"])
+    rel = abs(slq - dense) / abs(dense)
+    expect(rel <= 0.05, f"solvers: SLQ log-det {slq:.3f} vs dense {dense:.3f} "
+           f"(rel {rel:.3e})")
+    print(f"[solvers] exact_lml: lml {float(lml['lml']):.3f}, datafit "
+          f"{float(lml['datafit']):.3f}, SLQ log-det {slq:.3f} ({cfg['lml_probes']} "
+          f"probes x {cfg['slq_iters']} iterations) vs dense float64 {dense:.3f} "
+          f"(rel {rel:.3e})")
+    costs = nystrom.rank_costs(h, tol=cfg["tol"])
+    print("[solvers] auto scored (rank, predicted iterations, cost in "
+          "unpreconditioned iterations): "
+          + "; ".join(f"({r}, {it:.1f}, {c:.1f})" for r, it, c in costs)
+          + f" -> rank {st['auto'].precond_rank}")
+    for x in hist:
+        print(f"[solvers] fit step {x['step']}: loss {x['loss']:.4f}, sigma_n2 "
+              f"{x['sigma_n2']:.5f}, cg_iters {x['cg_iters']}, converged "
+              f"{x['cg_converged']}")
+
+    walls: dict[str, list[float]] = {key: [] for _, key, _ in calls}
+    for _ in range(3):
+        for _, key, fn in calls:
+            walls[key].append(timed_call(fn, dev)[1])
+    warm = {k: float(np.median(v)) for k, v in walls.items()}
+    for label, key, _ in calls:
+        t = timings[key]
+        print(f"[solvers] {label}: {_describe(key, st[key])}first call "
+              f"{t['s'] * 1e3:.1f} ms, warm median {warm[key] * 1e3:.1f} ms (of 3), "
+              f"max_memory_allocated {mib(t['max_mem'])} MiB, launches "
+              f"{json.dumps(t['launches'])}")
+    busy = {key: profile_busy(f"solvers {label}", fn, dev, warm[key])
+            for label, key, fn in calls}
+    print(f"[solvers] Nyström build (rank {rank}, T = {h.shape[0]}) warm "
+          f"{warm['build'] * 1e3:.1f} ms, apart from its solve "
+          f"{warm['prebuilt'] * 1e3:.1f} ms ({st['prebuilt'].iters} iterations)")
+
+    # Card vs CPU at N = 2·10⁴: the Nyström solve and exact_lml, with the
+    # probes drawn from one host generator on both.
+    small = dict(cfg, n_nodes=E2E["n_nodes"])
+    got = []
+    for d in (dev, torch.device("cpu")):
+        _, _, _, f_d, _, tx_d, h_d, b_d = solver_problem(small, d)
+        pc = solvers.nystrom_precond(h_d, rank=rank)
+        sol = solvers.solve(h_d, b_d, solve_strategy("nystrom"), precond=pc)
+        expect(bool(torch.all(sol.converged)), f"solvers e2e ({d}): not converged")
+        out = mll.exact_lml(tx_d, f_d, small["sigma_n2"], b_d, small["n_nodes"],
+                            torch.Generator().manual_seed(5),
+                            strategy=solve_strategy("nystrom"),
+                            n_probes=small["lml_probes"],
+                            slq_iters=small["slq_iters"])
+        got.append((sol, pc.pivots.cpu(), out))
+    (s_a, p_a, l_a), (s_b, p_b, l_b) = got
+    print(f"[solvers] card vs CPU at N={small['n_nodes']} (T = {len(s_b.x)}): "
+          f"{int((p_a == p_b).sum())} of {len(p_b)} Nyström pivots agree (not "
+          f"gated); iterations {s_a.iters} vs {s_b.iters}")
+    for what, a, bb in (("nystrom solve x", s_a.x, s_b.x),
+                        ("exact_lml lml", l_a["lml"], l_b["lml"]),
+                        ("exact_lml logdet", l_a["logdet"], l_b["logdet"]),
+                        ("exact_lml datafit", l_a["datafit"], l_b["datafit"])):
+        err, rel_ = rel_err(a.cpu().reshape(-1), bb.reshape(-1))
+        expect(rel_ <= E2E_RTOL, f"solvers card vs CPU {what}: rel {rel_:.2e}")
+        print(f"[solvers] card vs CPU at N={small['n_nodes']}: {what} max abs "
+              f"{err:.3e} (rel {rel_:.2e})")
+    return dict(counts=counts, timings=timings, warm=warm, busy=busy,
+                precond=st["build"], h=h, b=b, trace_x=trace_x, f=f,
+                iters=st["prebuilt"].iters)
+
+
 # --------------------------------------------------------------------------
 # Phase 5: timing at the main-path shapes
 # --------------------------------------------------------------------------
@@ -1090,7 +1517,8 @@ def phase_timing(dev, results: dict) -> list[dict]:
     path_counts = [main["counts"], results["fit"]["counts"],
                    results["serving"]["counts"],
                    *(results["bo"][e]["counts"] for e in ("incremental",
-                                                          "refit-chunked"))]
+                                                          "refit-chunked")),
+                   results["solvers"]["counts"]]
     counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     nodes = torch.arange(n, dtype=torch.int32, device=dev)
     wkw = dict(n_walkers=wcfg.n_walkers, p_halt=wcfg.p_halt, l_max=wcfg.l_max)
@@ -1197,6 +1625,7 @@ def phase_timing(dev, results: dict) -> list[dict]:
     torch.cuda.empty_cache()
     timing_fit(dev, results["fit"], n)
     rows.append(timing_gram(dev, results["serving"], counts["gram_block"]))
+    rows.append(timing_woodbury(dev, results["solvers"], counts["woodbury_apply"]))
     return rows
 
 
@@ -1330,6 +1759,71 @@ def timing_gram(dev, serving_out: dict, launches: int) -> dict:
                 library_ms=head["library_ms"], shapes=shapes)
 
 
+def timing_woodbury(dev, solv: dict, launches: int) -> dict:
+    """woodbury_apply at T = 4000 for r in WOOD_RANKS and R in WOOD_COLS, on
+    the solvers phase's Nyström operands (r = 128 is the phase's; 64 and 256
+    are built on the same H), and the fused K̂ kernel at the solvers phase's CG
+    shape beside it."""
+    import torch
+
+    from repro_torch import solvers
+    from repro_torch.core import features
+    from repro_torch.kernels.ell_spmv import ops as eops
+    from repro_torch.kernels.ell_spmv import ref as eref
+    from repro_torch.kernels.woodbury_apply import ops, ref
+
+    h = solv["h"]
+    t = h.shape[0]
+    gen = torch.Generator(device=dev).manual_seed(6)
+    shapes = []
+    for r in WOOD_RANKS:
+        pc = solv["precond"] if r == SOLVE["rank"] else solvers.nystrom_precond(h, rank=r)
+        b, dinv, einv = pc._b, pc._dinv, pc._einv
+        for cols in WOOD_COLS:
+            v = torch.randn((t,) if cols == 1 else (t, cols), generator=gen, device=dev)
+            got = ops.woodbury_apply_raw(b, dinv, einv, v)
+            errs = rel_err(got, ref.woodbury_apply_ref(b, dinv, einv, v))
+            expect(errs[1] <= KERNEL_RTOL,
+                   f"woodbury_apply at T={t}, r={r}, R={cols}: rel {errs[1]:.2e}")
+            ms = cuda_ms(lambda: ops.woodbury_apply_raw(b, dinv, einv, v), 200)
+            pms = cuda_ms(lambda: ref.woodbury_apply_ref(b, dinv, einv, v), 200)
+            # B, D⁻¹, E⁻¹ and v read once, out written once; a multiply-add
+            # per entry of BᵀW and of B s, and of E⁻¹u.
+            bd = bound((t * r + t + r * r + 2 * t * cols) * 4,
+                       4 * t * r * cols + 2 * r * r * cols)
+            print(f"[timing] woodbury_apply T={t} r={r} R={cols}: kernel "
+                  f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bd[0] * 1e3:.3f} us "
+                  f"({bd[1]}), library none, max_abs_err {errs[0]:.3e} "
+                  f"(rel {errs[1]:.2e})")
+            shapes.append(dict(shape=[t, r, cols], ms=ms, plain_ms=pms,
+                               bound_ms=bd[0], bound_by=bd[1],
+                               max_abs_err=errs[0]))
+    # The fused K̂ kernel at the solvers phase's CG shape (K = 144, R = 1).
+    tx, f = solv["trace_x"], solv["f"]
+    vals = features.feature_values(tx, f).contiguous()
+    cols_x = tx.cols.contiguous()
+    n = SOLVE["n_nodes"]
+    p = torch.randn((t,), generator=gen, device=dev)
+    err, rel = rel_err(eops.khat_fused(vals, cols_x, vals, cols_x, p, n),
+                       eref.khat_matvec_ref(vals, cols_x, vals, cols_x, p, n))
+    expect(rel <= KERNEL_RTOL, f"khat_fused at the solvers CG shape: rel {rel:.2e}")
+    nnz = int((vals != 0).sum())
+    kb = bound(t * vals.shape[1] * 8 + 2 * t * 4, 4 * nnz)
+    print(f"[timing] khat_fused at the solvers CG shape ([{t}, {vals.shape[1]}], "
+          f"R=1, N={n}): kernel "
+          f"{cuda_ms(lambda: eops.khat_fused(vals, cols_x, vals, cols_x, p, n), 200):.4f} ms, "
+          f"plain {cuda_ms(lambda: eref.khat_matvec_ref(vals, cols_x, vals, cols_x, p, n), 50):.4f} ms, "
+          f"bound {kb[0] * 1e3:.3f} us ({kb[1]}), max_abs_err {err:.3e} (rel {rel:.2e})")
+    head = next(x for x in shapes if x["shape"] == [t, SOLVE["rank"], 1])
+    return dict(name="woodbury_apply", route="cuda",
+                source="src/repro_torch/kernels/csrc/woodbury_apply.cu",
+                replaces=REPLACES["woodbury_apply"], launches=launches,
+                max_abs_err=max(x["max_abs_err"] for x in shapes),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None, shapes=shapes)
+
+
 # --------------------------------------------------------------------------
 
 
@@ -1359,11 +1853,13 @@ def main() -> int:
         ("parity-walk", lambda: check_walk_cases(dev)),
         ("parity-ell", lambda: check_kernel_cases(dev)),
         ("parity-gram", lambda: check_gram_cases(dev)),
+        ("parity-woodbury", lambda: check_woodbury_cases(dev)),
         ("main", lambda: phase_main(dev)),
         ("e2e", lambda: phase_e2e(dev)),
         ("fit", lambda: phase_fit(dev)),
         ("serving", lambda: phase_serving(dev)),
         ("bo", lambda: phase_bo(dev)),
+        ("solvers", lambda: phase_solvers(dev)),
     ]
     results = {}
     for name, fn in phases:

@@ -20,11 +20,15 @@ the numpy generator of the initial design, the uint32 walk seed (the
 identity of Φ, fixed across rounds), the candidate sets, and one
 ``torch.Generator`` on the data's device per refit and per draw.
 
-Not in this slice: ``checkpoint_cb`` resume through the checkpoint manager
-(a ``checkpoint_cb`` callable is still called after every round, and
-``state=`` resumes from a :class:`BOState`), the obs spans and counters,
-and ``preconditioner="auto"`` (the fit and the solves raise
-NotImplementedError for it).
+``preconditioner="auto"`` (in ``fit_strategy`` or ``sample_strategy``) is
+resolved ONCE per run, on the first refit round's operator, as the JAX loops
+do: T is the static buffer capacity and later rounds only flip mask slots,
+so the measured rank keeps its meaning.
+
+Not in the port yet: ``checkpoint_cb`` resume through the checkpoint
+manager (a ``checkpoint_cb`` callable is still called after every round,
+and ``state=`` resumes from a :class:`BOState`) and the obs spans and
+counters (ROADMAP Queue 1 #5).
 """
 from __future__ import annotations
 
@@ -146,6 +150,18 @@ def _record_round(state: BOState, picks, ys, f_max, checkpoint_cb, t):
         checkpoint_cb(state)
 
 
+def _resolve_auto(strategies, trace_x, mod, params, mask, n):
+    """Resolve each ``"auto"`` strategy on the refit round's operator."""
+    if all(st.preconditioner != "auto" for st in strategies):
+        return strategies
+    with torch.no_grad():
+        h0 = mll.make_h_operator(
+            trace_x, mod(params["mod"]),
+            torch.where(mask > 0, mll.noise_var(params),
+                        torch.full_like(mask, 1e6)), n)
+        return tuple(solvers.resolve_strategy(h0, st) for st in strategies)
+
+
 def _refit(state, trace_x, mod, y_n, n, mask, seed, t, refit_steps,
            noise_std, fit_strategy, device):
     res = mll.fit_hyperparams(
@@ -234,6 +250,9 @@ def thompson_sampling(
                 )
             else:
                 trace_x = features.take_rows(trace, x_all)
+            fit_strategy, sample_strategy = _resolve_auto(
+                (fit_strategy, sample_strategy), trace_x, mod, state.params,
+                mask, n)
             _refit(state, trace_x, mod, y_n, n, mask, seed, t, refit_steps,
                    noise_std, fit_strategy, dev)
 
@@ -335,6 +354,8 @@ def thompson_sampling_incremental(
                     walk_seed, walk.n_walkers, walk.p_halt, walk.l_max,
                     walk.reweight, walk.scheme,
                 )
+                (fit_strategy,) = _resolve_auto((fit_strategy,), trace_x, mod,
+                                                state.params, mask, n)
                 _refit(state, trace_x, mod, y_n, n, mask, seed, t,
                        refit_steps, noise_std, fit_strategy, dev)
             # One O(m³) Gram refactorisation into a fresh ServeState.

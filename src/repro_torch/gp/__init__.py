@@ -1,6 +1,7 @@
-from . import mll, posterior  # noqa: F401
+from . import mll, posterior, variational  # noqa: F401
 from .mll import (  # noqa: F401
     FitResult,
+    exact_lml,
     fit_hyperparams,
     init_hyperparams,
     make_h_matvec,
@@ -16,3 +17,4 @@ from .posterior import (  # noqa: F401
     predictive_moments_from_samples,
     rmse,
 )
+from .variational import init_inducing_pivoted  # noqa: F401

@@ -16,13 +16,17 @@ Warm starts as in the JAX package: ``_fit_chunk`` carries the solution
 block [v_y, v_z] from step to step as ``x0`` and draws the probes once per
 chunk.  The JAX ``lax.scan`` over Adam steps is a Python loop here.
 
-Not in this slice: ``exact_lml`` (SLQ log-det), which comes with the
-Nyström/SLQ slice, and ``preconditioner="auto"``, which raises
-NotImplementedError.
+Under ``preconditioner="nystrom"`` each step's solve rebuilds the
+preconditioner from that step's operator, as the JAX ``_fit_chunk`` does
+under jit; ``"auto"`` is resolved once per fit, on the initial
+hyperparameters.  The LML *value* (not only its gradient) comes from
+:func:`exact_lml`: a strategy solve for yᵀH⁻¹y and stochastic Lanczos
+quadrature (solvers/slq.py) for log det H.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Callable
 
 import torch
@@ -222,16 +226,15 @@ def fit_hyperparams(
     (``warm_start=True``) to carry [v_y, v_z] across Adam steps.  Probes
     come from ``generator``, drawn on its device, once per chunk when warm.
 
+    ``preconditioner="auto"`` is resolved ONCE, on the initial
+    hyperparameters with probes from ``generator``, and the measured rank
+    is reused for every step (H only drifts by hyperparameter updates).
+
     ``FitResult.history`` records EVERY step (loss, datafit, σ_n², CG
     iterations and convergence)."""
     if strategy is None:
         strategy = solvers.MLL_DEFAULT.with_(warm_start=False)
     strategy = strategy.with_overrides(tol=cg_tol, max_iters=cg_iters)
-    if strategy.preconditioner == "auto":
-        raise NotImplementedError(
-            "preconditioner='auto' comes with the Nyström/SLQ slice of the "
-            "port; the fit runs 'none' and 'jacobi'"
-        )
     if init_params is None:
         init_params = init_hyperparams(mod, generator, init_noise,
                                        device=y.device)
@@ -240,6 +243,13 @@ def fit_hyperparams(
     opt_state = opt.init(params)
     if obs_mask is None:
         obs_mask = torch.ones_like(y)
+    if strategy.preconditioner == "auto":
+        with torch.no_grad():
+            f0 = mod(params["mod"])
+            s2 = _masked_noise(noise_var(params), obs_mask)
+            strategy = solvers.resolve_strategy(
+                make_h_operator(trace_x, f0, s2, n_nodes), strategy,
+                generator=generator)
     v = torch.zeros((y.shape[0], 1 + n_probes), dtype=torch.float32,
                     device=y.device)
 
@@ -262,3 +272,80 @@ def fit_hyperparams(
             })
         done += this
     return FitResult(params=params, history=history)
+
+
+# ---------------------------------------------------------------------------
+# Exact LML values (SLQ log-det) — the quantity the surrogate only
+# differentiates.
+# ---------------------------------------------------------------------------
+
+
+def _lml_operator(trace_x, f, sigma_n2, n_nodes, obs_mask):
+    """H of :func:`exact_lml`: K̂ + σ²I, or with a mask M K̂ M + D with unit
+    noise on dead slots (their rows of H are exactly e_i, so log det H is
+    the live block's)."""
+    if obs_mask is None:
+        return make_h_operator(trace_x, f, sigma_n2, n_nodes)
+    s2 = torch.as_tensor(sigma_n2, dtype=torch.float32, device=obs_mask.device)
+    noise = torch.where(obs_mask > 0, s2, torch.ones_like(obs_mask))
+    return linops.ShiftedOperator(linops.khat(trace_x, f, n_nodes), noise,
+                                  mask=obs_mask)
+
+
+@torch.no_grad()
+def exact_lml(
+    trace_x: WalkTrace,
+    f: torch.Tensor,
+    sigma_n2,
+    y: torch.Tensor,
+    n_nodes: int,
+    generator: torch.Generator,
+    strategy: SolveStrategy | None = None,
+    n_probes: int = 32,
+    slq_iters: int = 64,
+    obs_mask: torch.Tensor | None = None,
+) -> dict:
+    """log p(y | θ) = −½ yᵀH⁻¹y − ½ log det H − (T/2) log 2π  (Eq. 8).
+
+    The quadratic term is a strategy solve; the log-det is stochastic
+    Lanczos quadrature over the CG recurrence (solvers/slq.py) — no dense
+    factorisation, O(n_probes · slq_iters) sparse matvecs.  Probes come from
+    ``generator`` (also the ``"auto"`` probe's, when the strategy asks for
+    it).  With ``obs_mask`` the operator takes the masked-sandwich form
+    M K̂ M + D with unit noise on dead slots, so the result is the
+    live-block LML.
+
+    Returns a dict with ``lml``, ``datafit`` (½yᵀH⁻¹y), ``logdet`` and the
+    solve's ``converged`` flag (an unconverged quadratic term means the lml
+    value is untrustworthy)."""
+    if strategy is None:
+        strategy = solvers.MLL_DEFAULT.with_(warm_start=False)
+    if strategy.preconditioner == "auto":
+        strategy = solvers.resolve_strategy(
+            _lml_operator(trace_x, f, sigma_n2, n_nodes, obs_mask), strategy,
+            generator=generator)
+    return _exact_lml(trace_x, f, sigma_n2, y, obs_mask, generator,
+                      strategy=strategy, n_probes=n_probes,
+                      slq_iters=slq_iters, n_nodes=n_nodes)
+
+
+def _exact_lml(trace_x, f, sigma_n2, y, obs_mask, generator, *, strategy,
+               n_probes, slq_iters, n_nodes):
+    t = y.shape[0]
+    if obs_mask is None:
+        t_live = torch.tensor(float(t), device=y.device)
+    else:
+        t_live = torch.sum(obs_mask)
+        y = y * obs_mask
+    h = _lml_operator(trace_x, f, sigma_n2, n_nodes, obs_mask)
+    sol = solvers.solve(h, y, strategy)
+    datafit = 0.5 * torch.dot(y, sol.x)
+    logdet = solvers.slq_logdet(h, t, generator, n_probes=n_probes,
+                                n_iters=slq_iters, device=y.device)
+    lml = -datafit - 0.5 * logdet - 0.5 * t_live * math.log(2.0 * math.pi)
+    return {
+        "lml": lml,
+        "datafit": datafit,
+        "logdet": logdet,
+        "converged": bool(torch.all(sol.converged)),
+    }

@@ -5,7 +5,12 @@ A posterior sample over *all* N nodes is a prior sample plus a sparse
 correction:  g|y = g + K̂_{·x}(K̂_xx + σ²I)⁻¹(y − g(x) − ε),
 with the prior sampled as g = Φ w, w ~ N(0, I_N)  (Cov = ΦΦᵀ = K̂).
 Every product is an O(N) sparse op; the solve is CG through the strategy
-layer.
+layer — pass ``strategy=SolveStrategy(preconditioner="nystrom")`` to
+precondition the training-block system with the rank-r pivoted Nyström of
+K̂_xx, or ``"auto"`` to let the spectral probe pick the rank.  The JAX
+package resolves ``"auto"`` before its jit boundary on an eagerly built
+copy of H; the port has no jit boundary, so ``solvers.solve`` resolves it
+on the operator it is handed.
 
 The public sampling functions draw the prior weights ``w`` [N, S] and the
 unit-normal noise ``eps`` [T, S] from a ``torch.Generator`` (w first) and
@@ -155,7 +160,11 @@ def pathwise_samples_chunked(
     ``chunk``-row blocks; only the training-node trace Φ_x ([T, K]) is
     materialised.  With the same ``walk_seed`` and the same generator state
     this equals :func:`pathwise_samples` on the monolithic trace sampled with
-    ``walk_seed``.  Peak memory: O(chunk·K + N·n_samples)."""
+    ``walk_seed``.  Peak memory: O(chunk·K + N·n_samples).
+
+    The training-block solve is a strategy solve on the *materialised*
+    Φ_x, so Nyström preconditioning works here even though the full Φ is
+    lazy."""
     w, eps = _draw(generator, graph.n_nodes, train_nodes.shape[0], n_samples,
                    graph.device)
     samples, iters, converged = _pathwise_samples_chunked(

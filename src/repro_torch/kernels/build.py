@@ -24,7 +24,8 @@ import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused", "gram_block")
+SOURCES = ("walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused", "gram_block",
+           "woodbury_apply")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",

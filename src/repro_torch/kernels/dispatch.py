@@ -1,4 +1,4 @@
-"""Dispatched sparse products and walk sampling (port of
+"""Dispatched sparse products, walk sampling and the Woodbury apply (port of
 ``repro/kernels/dispatch.py``).
 
 Resolution is by device and nothing else: tensors on the CPU go to each
@@ -19,8 +19,10 @@ import torch
 from .ell_spmv import ops as ell_ops
 from .gram_block import ops as gram_ops
 from .walk_sampler import ops as walk_ops
+from .woodbury_apply import ops as wood_ops
 
-_COUNTERS = (walk_ops.LAUNCHES, ell_ops.LAUNCHES, gram_ops.LAUNCHES)
+_COUNTERS = (walk_ops.LAUNCHES, ell_ops.LAUNCHES, gram_ops.LAUNCHES,
+             wood_ops.LAUNCHES)
 
 
 def _f32(vals: torch.Tensor) -> torch.Tensor:
@@ -58,6 +60,13 @@ def gram_block(vals_rows, cols_rows, vals_cols, cols_cols):
     sparse×sparse cross-Gram (duplicate deposit columns exact)."""
     return gram_ops.gram_block(_f32(vals_rows), cols_rows.contiguous(),
                                _f32(vals_cols), cols_cols.contiguous())
+
+
+def woodbury_apply(b, dinv, einv, v):
+    """M⁻¹v = D⁻¹v − D⁻¹B E⁻¹ BᵀD⁻¹v — the Nyström preconditioner apply
+    (B [T, r], D⁻¹ [T], E⁻¹ [r, r], v [T] or [T, R])."""
+    return wood_ops.woodbury_apply(_f32(b), _f32(dinv), _f32(einv),
+                                   v.to(torch.float32).contiguous())
 
 
 def walk_sample(neighbors, weights, deg, nodes, seed: int, *, n_walkers: int,

@@ -1,14 +1,28 @@
-"""The Krylov strategy layer (port of ``repro/solvers``; CG + Jacobi in this
-slice)."""
+"""The Krylov strategy layer (port of ``repro/solvers``): CG, Jacobi and
+pivoted-Cholesky Nyström preconditioning, the ``"auto"`` rank probe, and SLQ
+log-determinants."""
 from .cg import (  # noqa: F401
     CGResult,
+    LanczosCoeffs,
     cg_solve,
     cg_solve_fixed,
     jacobi_precond,
     make_preconditioner,
     solve,
 )
-from .slq import rademacher  # noqa: F401
+from .nystrom import (  # noqa: F401
+    nystrom_precond,
+    pivot_rows,
+    probe_spectrum,
+    resolve_strategy,
+    select_rank,
+)
+from .slq import (  # noqa: F401
+    logdet_from_coeffs,
+    rademacher,
+    slq_logdet,
+    tridiag_from_coeffs,
+)
 from .strategy import (  # noqa: F401
     AUTO_RANKS,
     DEFAULT_PRECOND_RANK,

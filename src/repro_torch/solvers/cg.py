@@ -6,9 +6,15 @@ iteration is the JAX package's.  The adaptive loop keeps its stopping rule
 exactly — continue while ``any(‖r‖ > tol·‖b‖)`` and under ``max_iters`` —
 and reads that test on the host once per iteration.
 
-Not in this slice: ``with_coeffs`` (the SLQ recurrence record), the
-``"nystrom"``/``"auto"`` preconditioners and ``escalate=True``; each raises
-NotImplementedError naming the slice that brings it.
+``cg_solve_fixed(..., with_coeffs=True)`` records the recurrence scalars
+(α_j, β_j) per column — the Lanczos tridiagonal of H that stochastic Lanczos
+quadrature (solvers/slq.py) and the spectral rank probe
+(solvers/nystrom.py) integrate.  :func:`solve` is the strategy entry point:
+``"none"``, ``"jacobi"``, ``"nystrom"`` (the pivoted-Cholesky Nyström
+preconditioner, applied by the Woodbury kernel) and ``"auto"`` (resolved to
+a measured rank by the spectral probe).  Not in the port yet:
+``escalate=True``, which raises NotImplementedError until
+``solvers/escalate.py`` is ported (ROADMAP Queue 1 #5).
 """
 from __future__ import annotations
 
@@ -18,9 +24,6 @@ import torch
 
 from .strategy import SolveStrategy
 
-_NYSTROM_SLICE = ("the Nyström/SLQ slice of the port (solvers/nystrom.py, "
-                  "solvers/slq.py)")
-
 
 class CGResult(NamedTuple):
     x: torch.Tensor          # [N] or [N, R] solution
@@ -28,6 +31,25 @@ class CGResult(NamedTuple):
     resnorm: torch.Tensor    # [R] final residual norms
     converged: torch.Tensor  # [R] bool — per-column ‖r‖ ≤ tol·‖b‖ at exit
     precond_rank: int = 0    # Nyström rank of the preconditioner (0 = none/jacobi)
+
+
+class LanczosCoeffs(NamedTuple):
+    """CG recurrence scalars per iteration and RHS column.
+
+    The Lanczos tridiagonal T of H in the Krylov basis of column j is
+    (Saad, Iterative Methods §6.7)
+
+        T[i, i]   = 1/α_i + β_{i-1}/α_{i-1}      (β_{-1}/α_{-1} := 0)
+        T[i, i+1] = √β_i / α_i
+
+    ``valid`` masks iterations executed before breakdown or convergence
+    (α_i > 0); slq.py turns masked-off rows into decoupled unit eigenvalues
+    that carry zero quadrature weight."""
+
+    alphas: torch.Tensor   # [iters, R]
+    betas: torch.Tensor    # [iters, R]
+    valid: torch.Tensor    # [iters, R] bool
+    bnorm2: torch.Tensor   # [R] squared probe norms (quadrature weights)
 
 
 def _dot(u: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -122,10 +144,13 @@ def cg_solve_fixed(
     tol: float = 1e-5,
     precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
     x0: torch.Tensor | None = None,
-) -> CGResult:
+    with_coeffs: bool = False,
+):
     """Fixed-iteration CG (no early exit, no host reads inside the loop).
 
-    ``tol`` only grades the reported ``converged`` field."""
+    ``tol`` only grades the reported ``converged`` field.
+    ``with_coeffs=True`` returns ``(CGResult, LanczosCoeffs)``: α, β and
+    the ``active`` mask of every iteration, which SLQ integrates."""
     squeeze = b.dim() == 1
     if squeeze:
         b = b[:, None]
@@ -134,10 +159,15 @@ def cg_solve_fixed(
 
     bnorm2 = dot(b, b)
     x, res, z, p, rz = _init_state(matvec, b, x0, apply_m, dot)
-    for _ in range(iters):
+    if with_coeffs:
+        alphas = b.new_zeros((iters, b.shape[1]))
+        betas = torch.zeros_like(alphas)
+        valid = torch.zeros_like(alphas, dtype=torch.bool)
+    for i in range(iters):
         hp = matvec(p)
         php = dot(p, hp)
-        alpha = _safe_div(rz, php, (php > 0) & (rz > 0))
+        active = (php > 0) & (rz > 0)
+        alpha = _safe_div(rz, php, active)
         x = x + alpha[None, :] * p
         res = res - alpha[None, :] * hp
         z = apply_m(res)
@@ -145,10 +175,15 @@ def cg_solve_fixed(
         beta = _safe_div(rz_new, rz, rz > 0)
         p = z + beta[None, :] * p
         rz = rz_new
+        if with_coeffs:
+            alphas[i], betas[i], valid[i] = alpha, beta, active
     out = x[:, 0] if squeeze else x
     resnorm = torch.sqrt(dot(res, res))
     thresh = tol * torch.clamp(torch.sqrt(bnorm2), min=1e-30)
-    return CGResult(out, iters, resnorm, resnorm <= thresh)
+    result = CGResult(out, iters, resnorm, resnorm <= thresh)
+    if with_coeffs:
+        return result, LanczosCoeffs(alphas, betas, valid, bnorm2)
+    return result
 
 
 def make_preconditioner(
@@ -157,16 +192,21 @@ def make_preconditioner(
     """The strategy's preconditioner apply for operator ``h``.
 
     ``"jacobi"`` uses ``h.diag_approx()`` when the operator exposes one
-    (plain callables fall back to the identity — any SPD M is valid)."""
-    if strategy.preconditioner in ("nystrom", "auto"):
-        raise NotImplementedError(
-            f"preconditioner={strategy.preconditioner!r} comes with "
-            f"{_NYSTROM_SLICE}; this slice runs 'none' and 'jacobi'"
-        )
+    (plain callables fall back to the identity — any SPD M is valid).
+    ``"nystrom"`` needs a square materialised-trace :class:`ShiftedOperator`
+    (solvers/nystrom.py says why).  ``"auto"`` resolves here (spectral probe
+    → measured rank) when called directly; :func:`solve` resolves it before
+    reaching this point."""
+    from .nystrom import nystrom_precond, resolve_strategy
+
+    strategy = resolve_strategy(h, strategy)
     if strategy.preconditioner == "none":
         return None
-    diag = h.diag_approx() if hasattr(h, "diag_approx") else None
-    return jacobi_precond(diag)
+    if strategy.preconditioner == "jacobi":
+        diag = h.diag_approx() if hasattr(h, "diag_approx") else None
+        return jacobi_precond(diag)
+    return nystrom_precond(h, rank=strategy.precond_rank,
+                           jitter=strategy.precond_jitter)
 
 
 def _with_matvec_dtype(h, dtype: str):
@@ -196,21 +236,34 @@ def solve(
     ``h`` is an operator (callable, optionally with ``diag_approx``) or a
     bare matvec.  ``precond`` overrides the strategy's preconditioner with a
     prebuilt apply.  ``x0`` is honoured only when ``strategy.warm_start``.
-    The preconditioner is built from the f32 operator; ``matvec_dtype``
-    wraps only the CG matvec."""
+
+    ``preconditioner="auto"`` resolves here, by the spectral probe
+    (solvers/nystrom.py); the port has no trace, so it always measures.  The
+    preconditioner is built from the f32 operator; ``matvec_dtype`` wraps
+    only the CG matvec, and the rank actually used is reported as
+    ``CGResult.precond_rank``.  ``escalate=True`` raises NotImplementedError
+    until the resilience slice ports solvers/escalate.py (ROADMAP Queue 1
+    #5)."""
     if escalate:
         raise NotImplementedError(
             "escalate=True comes with the observability and resilience slice "
-            "of the port (solvers/escalate.py)"
+            "of the port (solvers/escalate.py, ROADMAP Queue 1 #5)"
         )
+    if strategy.preconditioner == "auto":
+        from .nystrom import resolve_strategy
+
+        strategy = resolve_strategy(h, strategy)
     if precond is None:
         precond = make_preconditioner(h, strategy)
+    rank = int(getattr(precond, "rank", 0))
     matvec = _with_matvec_dtype(h, strategy.matvec_dtype)
     if not strategy.warm_start:
         x0 = None
     if strategy.adaptive:
-        return cg_solve(matvec, b, tol=strategy.tol,
-                        max_iters=strategy.max_iters, dot=dot,
-                        precond=precond, x0=x0)
-    return cg_solve_fixed(matvec, b, iters=strategy.max_iters, dot=dot,
-                          precond=precond, x0=x0, tol=strategy.tol)
+        res = cg_solve(matvec, b, tol=strategy.tol,
+                       max_iters=strategy.max_iters, dot=dot,
+                       precond=precond, x0=x0)
+    else:
+        res = cg_solve_fixed(matvec, b, iters=strategy.max_iters, dot=dot,
+                             precond=precond, x0=x0, tol=strategy.tol)
+    return res._replace(precond_rank=rank)

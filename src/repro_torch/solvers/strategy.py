@@ -2,10 +2,9 @@
 
 One frozen, hashable object holds every Krylov knob, so each consumer
 passes a named strategy instead of tol/iters literals.  Same fields, same
-validation and same named defaults as the JAX package.  In this slice
-``solvers.solve`` runs ``"none"`` and ``"jacobi"``; ``"nystrom"`` and
-``"auto"`` are valid values that raise NotImplementedError there until the
-Nyström/SLQ slice is ported.
+validation and same named defaults as the JAX package.  ``solvers.solve``
+runs all four preconditioners: ``"none"``, ``"jacobi"``, ``"nystrom"`` and
+``"auto"``.
 """
 from __future__ import annotations
 
@@ -29,8 +28,7 @@ class SolveStrategy:
       max_iters: iteration budget (exact trip count when ``adaptive=False``).
       preconditioner: ``"none"`` | ``"jacobi"`` (diag(H) approx) |
         ``"nystrom"`` (rank-r pivoted Nyström of K̂ via Woodbury) |
-        ``"auto"`` (spectral probe picks a rank in AUTO_RANKS).  The last
-        two wait for the Nyström/SLQ slice of the port.
+        ``"auto"`` (spectral probe picks a rank in AUTO_RANKS).
       warm_start: consumers that hold a previous solution pass it as
         ``x0``; strategies with ``warm_start=False`` make ``solve`` ignore
         any ``x0`` so cold/warm behaviour is decided in one place.

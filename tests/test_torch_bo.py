@@ -135,11 +135,12 @@ def test_incremental_resume_reproduces_uninterrupted_run():
         tthompson.thompson_sampling_incremental(
             g, cfg, tmod.diffusion(3), obj, 5, state=snap["st"],
             **{**kw, "n_steps": 50})
-    with pytest.raises(NotImplementedError, match="Nyström"):
-        tthompson.thompson_sampling_incremental(
-            g, cfg, tmod.diffusion(3), obj, 5,
-            fit_strategy=tthompson.solvers.MLL_DEFAULT.with_(preconditioner="auto"),
-            **kw)
+    # "auto" resolves once per run and the run completes.
+    auto = tthompson.thompson_sampling_incremental(
+        g, cfg, tmod.diffusion(3), obj, 5,
+        fit_strategy=tthompson.solvers.MLL_DEFAULT.with_(preconditioner="auto"),
+        **kw)
+    check_run(auto, 10, 6, 1, 300)
 
 
 def test_replay_of_jax_incremental_run_matches_jax_serving():

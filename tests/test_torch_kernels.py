@@ -184,7 +184,8 @@ def test_mixed_devices_raise():
 def test_launch_counters_reset():
     dispatch.reset_launch_counts()
     assert set(dispatch.launch_counts()) == {
-        "walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused", "gram_block"}
+        "walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused", "gram_block",
+        "woodbury_apply"}
     assert all(c == 0 for c in dispatch.launch_counts().values())
 
 
@@ -196,6 +197,7 @@ def test_cuda_sources_name_the_tpu_kernel_they_replace():
         "ell_spmv_t": "src/repro/kernels/ell_spmv/ell_spmv_t.py:48",
         "khat_fused": "src/repro/kernels/ell_spmv/khat_fused.py:83",
         "gram_block": "src/repro/kernels/gram_block/gram_block.py:59",
+        "woodbury_apply": "src/repro/kernels/woodbury_apply/woodbury_apply.py:75",
     }
     assert set(build.SOURCES) == set(notes)
     for name, where in notes.items():

@@ -205,9 +205,12 @@ def test_fit_hyperparams_history_and_auto(p):
     assert all(bool(torch.isfinite(x).all()) for x in tadam.tree_leaves(res.params))
     # Adam moved σ_n² from its initial 0.3² on this data.
     assert abs(res.history[-1]["sigma_n2"] - 0.09) > 1e-4
-    with pytest.raises(NotImplementedError, match="Nyström"):
-        tmll.fit_hyperparams(p.ttr, p.tm, y, p.n, torch.Generator(), steps=1,
-                             strategy=solvers.MLL_DEFAULT.with_(preconditioner="auto"))
+    # "auto" resolves (once, on the initial hyperparameters) and fits.
+    auto = tmll.fit_hyperparams(p.ttr, p.tm, y, p.n, torch.Generator().manual_seed(0),
+                                steps=2, chunk=1, obs_mask=mask,
+                                init_params=p.tparams(),
+                                strategy=solvers.MLL_DEFAULT.with_(preconditioner="auto"))
+    assert all(h["cg_converged"] and np.isfinite(h["loss"]) for h in auto.history)
 
 
 def test_rademacher_probes():

@@ -274,10 +274,15 @@ def test_cg_loops_match_jax_directly(p):
 @pytest.mark.parametrize("bad", [
     dict(preconditioner="nystrom"), dict(preconditioner="auto")])
 def test_later_slice_features_raise(p, bad):
+    """"nystrom" and "auto" are ported (they solve to the Jacobi solution);
+    escalate=True still raises until the resilience slice."""
     tx = tfeat.take_rows(p.ttr, p.ttrain)
     h = tmll.make_h_operator(tx, p.tf, 0.05, p.n)
-    with pytest.raises(NotImplementedError, match="slice"):
-        solvers.solve(h, torch.ones(30), solvers.SolveStrategy(**bad))
+    b = torch.ones(30)
+    got = solvers.solve(h, b, solvers.SolveStrategy(tol=1e-6, **bad))
+    want = solvers.solve(h, b, solvers.SolveStrategy(tol=1e-6))
+    assert bool(got.converged.all())
+    close(got.x, want.x, CG_TOL)
     with pytest.raises(NotImplementedError, match="slice"):
         solvers.solve(h, torch.ones(30), escalate=True)
     with pytest.raises(ValueError):
