@@ -6,7 +6,7 @@
 Phases, each of which must pass (the first failure ends the run with a
 non-zero exit and no result line):
 
-  1. device    card name, `nvidia-smi` name and power limit; build the six
+  1. device    card name, `nvidia-smi` name and power limit; build the eight
                CUDA kernels (one nvcc per source, in parallel) and print
                their `-Xptxas -v` registers / spills.
   2. parity    each kernel against its plain PyTorch version on the card at
@@ -16,7 +16,12 @@ non-zero exit and no result line):
                woodbury_apply over T in {1, 37, 4000}, r in 1..256, R in
                1-D..64 and scalar / vector / masked D⁻¹), the walk golden
                checksums of the JAX reference, and the five autograd
-               Functions against autograd through the plain versions.
+               Functions against autograd through the plain versions;
+               parity-lm-kernels: rmsnorm at the JAX tests' cases and the LM
+               path's rows, flash_attention at the JAX tests' nine cases and
+               the LM shapes (danube at S = 1024 and 4608, window 4096;
+               gemma2-27b's D = 144 with softcap 50; gemma3-4b's D = 320; a
+               cross shape Sq = 128, Skv = 1500), f32 and bf16.
   3. main      ring(10⁶, k=3), 8 walkers, p_halt 0.2, l_max 5 (K = 48),
                T = 1024 observations, 16 samples: posterior_mean,
                pathwise_samples on the monolithic trace and
@@ -54,15 +59,30 @@ non-zero exit and no result line):
                = iterations + 1, gram_block launches = rank per build, SLQ
                within 5 % of the dense float64 log-det; card vs CPU at
                N = 2·10⁴ on the Nyström solve and exact_lml.
-  9. timing    each kernel at the main-path shapes with CUDA events: kernel,
+  9. lm        h2o-danube-1.8b at its published width (24 layers, bf16,
+               random weights from seed 0): ServeLoop(batch 4, max_len 5120)
+               answers 8 greedy requests of 32 tokens, 4 prompts of 1024
+               tokens then 4 of 4608 (past the 4096 window).  Gates: every
+               request gets its tokens, flash_attention launches 24 times per
+               prefill and never in a decode step, rmsnorm 49 times per
+               prefill and per step, finite logits.  Prefill ms (first,
+               warm) per prompt length, decode ms per step and tokens/s,
+               peak memory, launches per call, and the busy share of one
+               decode step and one prefill.  Then, at full width cut to 2
+               layers, f32, window 512: prefill(640) + 16 decode steps
+               against forward on the card, and the card against the CPU,
+               each within 1e-3.
+ 10. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
                (gram_block at each of its six shapes; woodbury_apply at
                T = 4000 for r in {64, 128, 256} and R in {1, 9, 16}; the K̂
                backward and the fused kernel's N·R zeroing at the fit's
-               shape; the fused kernel at the solvers' CG shape); printed as
-               one {"kernels": [...]} line.
+               shape; the fused kernel at the solvers' CG shape;
+               flash_attention at danube's prefill shapes, with both the bf16
+               tensor-core bound, used in the row, and the f32 one; rmsnorm
+               at the LM rows); printed as one {"kernels": [...]} line.
 
-Each path (main, fit, serving, each BO loop, solvers) is driven with every launch
+Each path (main, fit, serving, each BO loop, solvers, lm) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
 runs was never launched; a kernel's `launches` in the result line is the
 sum over those runs.
@@ -74,6 +94,7 @@ result.
 from __future__ import annotations
 
 import json
+import math
 import subprocess
 import sys
 import time
@@ -89,6 +110,7 @@ SRC = ROOT / "src"
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 F32_FLOP_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
+BF16_TC_FLOP_PER_S = 989e12  # H100 SXM bf16 dense, on the tensor cores
 
 # Tolerances, each relative to the largest |value| of the plain result:
 #   walk cols/lens are integer results of the same hash — compared exactly;
@@ -102,8 +124,18 @@ F32_FLOP_PER_S = 67e12      # H100 SXM float32, outside the tensor cores
 #   end-to-end results pass through CG (tol 1e-5 on the relative residual),
 #   whose iterates amplify those rounding differences; chunked vs monolithic
 #   and card vs CPU are held to 1e-4.
+#   flash attention in float32 sums a softmax over ≤ 4608 keys in another
+#   order than the plain version's einsum: 2e-5 (the JAX kernel test's);
+#   rmsnorm in float32 differs by one row sum's order and rsqrtf (≤ 2 ulp):
+#   1e-6; both kernels in bf16 compute in float32 and round once, as the
+#   plain versions do: 2 bf16 ulps of the plain result's scale;
+#   the LM path cut to 2 layers in float32 (decode vs forward, card vs CPU)
+#   runs 656 positions through 2 layers and a 32000-way unembedding: 1e-3.
 KERNEL_RTOL = 1e-5
 E2E_RTOL = 1e-4
+ATTN_RTOL = 2e-5
+NORM_RTOL = 1e-6
+BF16_ULPS = 2
 
 GOLDEN = dict(seed=1214163296, cols_crc=1350745773, lens_crc=1932814751,
               loads_sum=144.53968, loads_tol=1e-4)
@@ -135,6 +167,39 @@ WOOD_COLS = (1, 9, 16)
 GRAM_SHAPES = [(128, 144, 128, 144), (1, 144, 128, 144), (64, 144, 128, 144),
                (256, 144, 128, 144), (512, 144, 128, 144), (512, 144, 512, 144)]
 
+# LM serving on h2o-danube-1.8b at its published width (24 layers, d_model
+# 2560, 32/8 heads of 80, window 4096, bf16), random weights from the seed:
+# ServeLoop(batch 4, max_len 5120), wave A of 4 prompts of 1024 tokens,
+# wave B of 4 of 4608 (past the window: its masks and the ring-buffer wrap
+# run at full width), 32 greedy tokens each.
+LM = dict(arch="h2o-danube-1.8b", seed=0, batch=4, max_len=5120, new_tokens=32,
+          waves=((4, 1024), (4, 4608)))
+# The LM checks at full width cut to 2 layers, f32 activations and cache,
+# window 512: prefill(640) + 16 teacher-forced decode steps.
+LM_CHECK = dict(layers=2, window=512, prompt=640, steps=16, rtol=1e-3)
+# flash_attention's parity cases ((b, h, hkv, sq, skv, d), kwargs): the JAX
+# kernel tests' nine, then danube's prefill at both prompt lengths,
+# gemma2-27b's local layer (softcap 50), gemma3-4b's local layer (D = 320)
+# and a cross-attention shape.
+ATTN_CASES = [
+    ((2, 4, 4, 128, 128, 32), {}),
+    ((1, 8, 2, 128, 128, 32), {}),
+    ((1, 4, 2, 96, 96, 32), {}),
+    ((1, 2, 2, 64, 64, 32), dict(causal=False)),
+    ((1, 4, 4, 128, 128, 32), dict(window=48)),
+    ((1, 4, 4, 128, 128, 32), dict(softcap=30.0)),
+    ((1, 4, 2, 128, 256, 32), dict(causal=False)),
+    ((1, 4, 4, 128, 128, 32), dict(window=32, softcap=20.0)),
+    ((1, 2, 1, 40, 40, 16), {}),
+    ((1, 32, 8, 1024, 1024, 80), dict(window=4096)),
+    ((1, 32, 8, 4608, 4608, 80), dict(window=4096)),
+    ((1, 32, 16, 4608, 4608, 144), dict(window=4096, softcap=50.0)),
+    ((1, 8, 4, 2048, 2048, 320), dict(window=1024)),
+    ((1, 8, 8, 128, 1500, 64), dict(causal=False)),
+]
+# The LM path's rmsnorm rows: a prefill at each prompt length, a decode step.
+NORM_SHAPES = [(4608, 2560), (1024, 2560), (4, 2560)]
+
 REPLACES = {
     "walk_sampler": "src/repro/kernels/walk_sampler/walk_sampler.py:59",
     "ell_spmv": "src/repro/kernels/ell_spmv/ell_spmv.py:42",
@@ -142,6 +207,8 @@ REPLACES = {
     "khat_fused": "src/repro/kernels/ell_spmv/khat_fused.py:83",
     "gram_block": "src/repro/kernels/gram_block/gram_block.py:59",
     "woodbury_apply": "src/repro/kernels/woodbury_apply/woodbury_apply.py:75",
+    "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:104",
+    "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:27",
 }
 
 
@@ -1456,6 +1523,275 @@ def phase_solvers(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Slice 4: the LM scaffold's kernels and its serving path
+# --------------------------------------------------------------------------
+
+
+def bf16_err(got, want) -> tuple[float, float]:
+    """(max |got − want|, that in bf16 ulps of the plain result's scale)."""
+    err, _ = rel_err(got, want)
+    scale = float(want.abs().max())
+    return err, err / 2.0 ** (math.floor(math.log2(scale)) - 7)
+
+
+def attn_inputs(dev, shape, dtype, seed):
+    import torch
+
+    b, h, hkv, sq, skv, d = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return tuple(torch.randn(s, generator=gen, device=dev).to(dtype)
+                 for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
+
+
+def attn_case(dev, shape, kw, dtype, seed) -> tuple[float, float]:
+    """One flash_attention call against mha_ref on the card: (max abs err,
+    rel err for f32 or bf16 ulps of scale)."""
+    import torch
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    q, k, v = attn_inputs(dev, shape, dtype, seed)
+    got = ops.flash_attention(q, k, v, **kw)
+    sync(dev)
+    want = ref.mha_ref(q, k, v, **kw)
+    expect(got.dtype == dtype and got.shape == want.shape,
+           f"flash_attention {shape} {kw}: {got.dtype} {tuple(got.shape)}")
+    if dtype == torch.float32:
+        err, rel = rel_err(got, want)
+        expect(rel <= ATTN_RTOL, f"flash_attention {shape} {kw} f32: rel {rel:.2e}")
+    else:
+        err, rel = bf16_err(got, want)
+        expect(rel <= BF16_ULPS, f"flash_attention {shape} {kw} bf16: {rel:.2f} ulps")
+    return err, rel
+
+
+def check_flash_cases(dev) -> None:
+    """flash_attention against its plain version: the JAX kernel tests' nine
+    cases and the LM path's shapes, float32 and bf16."""
+    import torch
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for i, (shape, kw) in enumerate(ATTN_CASES):
+        for dt in (torch.float32, torch.bfloat16):
+            worst[dt] = max(worst[dt], attn_case(dev, shape, kw, dt, 100 + i)[1])
+    print(f"[parity] flash_attention matches mha_ref in {2 * len(ATTN_CASES)} cases "
+          f"(the JAX tests' nine and the LM path's shapes, f32 and bf16): f32 "
+          f"rel {worst[torch.float32]:.2e} (limit {ATTN_RTOL:g}), bf16 "
+          f"{worst[torch.bfloat16]:.2f} ulps of scale (limit {BF16_ULPS})")
+
+
+def check_rmsnorm_cases(dev) -> None:
+    """rmsnorm against its plain version: the JAX tests' cases and the LM
+    path's rows (prefill 1024 and 4608, decode batch 4) at d_model 2560."""
+    import torch
+
+    from repro_torch.kernels.rmsnorm import ops, ref
+
+    shapes = [(8, 64), (100, 256), (33, 128), (224, 96), (4608, 2560),
+              (1024, 2560), (4, 2560), (1, 2560), (3, 5120)]
+    gen = torch.Generator(device=dev).manual_seed(21)
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    for m, d in shapes:
+        x = 3 * torch.randn((m, d), generator=gen, device=dev)
+        s = 0.1 * torch.randn((d,), generator=gen, device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            got = ops.apply(x.to(dt), s)
+            want = ref.rmsnorm_ref(x.to(dt), s)
+            expect(got.dtype == dt, f"rmsnorm [{m},{d}] returns {got.dtype}")
+            if dt == torch.float32:
+                err = rel_err(got, want)[1]
+                expect(err <= NORM_RTOL, f"rmsnorm [{m},{d}] f32: rel {err:.2e}")
+            else:
+                err = bf16_err(got, want)[1]
+                expect(err <= BF16_ULPS, f"rmsnorm [{m},{d}] bf16: {err:.2f} ulps")
+            worst[dt] = max(worst[dt], err)
+    x3 = torch.randn((2, 17, 64), generator=gen, device=dev)
+    z = torch.zeros(64, device=dev)
+    expect(rel_err(ops.apply(x3, z), ref.rmsnorm_ref(x3, z))[1] <= NORM_RTOL,
+           "rmsnorm 3-D input")
+    print(f"[parity] rmsnorm matches rmsnorm_ref at {len(shapes)} shapes and a "
+          f"3-D input: f32 rel {worst[torch.float32]:.2e} (limit {NORM_RTOL:g}), "
+          f"bf16 {worst[torch.bfloat16]:.2f} ulps of scale (limit {BF16_ULPS})")
+
+
+def check_lm_kernels(dev) -> None:
+    check_rmsnorm_cases(dev)
+    check_flash_cases(dev)
+
+
+def serve_shim(real, dev, calls: list):
+    """``real`` (the models.model module) with prefill and decode_step
+    wrapped: each call is timed (host clock ending in a synchronize) and
+    records its kernel launches and whether its logits are finite."""
+    import types
+
+    import torch
+
+    def wrap(kind, fn, tok_arg):
+        def inner(*args, **kw):
+            c0 = counts_now()
+            sync(dev)
+            t0 = time.perf_counter()
+            logits, cache = fn(*args, **kw)
+            sync(dev)
+            wall = time.perf_counter() - t0
+            c1 = counts_now()
+            calls.append(dict(kind=kind, s=wall, tokens=args[tok_arg].shape[1],
+                              finite=bool(torch.isfinite(logits).all()),
+                              launches={k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}))
+            return logits, cache
+        return inner
+
+    return types.SimpleNamespace(
+        prefill=wrap("prefill", real.prefill, 2),
+        decode_step=wrap("decode", real.decode_step, 3),
+        init_cache=real.init_cache, tree_map=real.tree_map)
+
+
+def lm_check(dev) -> None:
+    """Full width cut to LM_CHECK["layers"] layers, f32 activations and
+    cache, window LM_CHECK["window"]: teacher-forced prefill + decode against
+    forward on the card, and the same run on the card against the CPU."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.models import LayerSpec, model
+
+    c = LM_CHECK
+    cfg = dataclasses.replace(
+        configs.get_config(LM["arch"]), dtype="float32", cache_dtype="float32",
+        stages=((c["layers"], (LayerSpec(kind="attn", window=c["window"]),)),))
+    n = c["prompt"] + c["steps"]
+    params = model.init_params(cfg, seed=LM["seed"] + 1, device=dev)
+    tok = torch.from_numpy(np.random.default_rng(LM["seed"] + 1).integers(
+        0, cfg.vocab_size, (1, n))).long()
+
+    def run(params, device):
+        t = tok.to(device)
+        first, cache = model.prefill(params, cfg, t[:, :c["prompt"]], max_len=n)
+        outs = [first]
+        for i in range(c["prompt"], n):
+            lg, cache = model.decode_step(params, cache, cfg, t[:, i:i + 1], i)
+            outs.append(lg[:, 0])
+        return torch.stack(outs, 1)    # logits at positions prompt−1 .. n−1
+
+    card = run(params, dev)
+    full, _ = model.forward(params, cfg, tok.to(dev))
+    err, rel = rel_err(card, full[:, c["prompt"] - 1:])
+    expect(rel <= c["rtol"], f"lm decode vs forward on the card: rel {rel:.2e}")
+    print(f"[lm] {c['layers']} layers at full width, f32, window {c['window']}: "
+          f"prefill({c['prompt']}) + {c['steps']} decode steps vs forward on the "
+          f"card max abs {err:.3e} (rel {rel:.2e}, limit {c['rtol']:g})")
+    host = run(model.tree_map(lambda a: a.cpu(), params), torch.device("cpu"))
+    err, rel = rel_err(card.cpu(), host)
+    expect(rel <= c["rtol"], f"lm card vs CPU: rel {rel:.2e}")
+    print(f"[lm] the same run on the card (kernels) vs the CPU (plain versions): "
+          f"max abs {err:.3e} (rel {rel:.2e}, limit {c['rtol']:g}); greedy tokens "
+          f"card {card[0].argmax(-1).tolist()} cpu {host[0].argmax(-1).tolist()}")
+
+
+def phase_lm(dev) -> dict:
+    """ServeLoop on h2o-danube-1.8b at its published width: the waves of LM
+    (4 prompts of 1024 tokens, then 4 of 4608, past the 4096 window), 32
+    greedy tokens each, with launch counts set to 0 just before the run."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import model
+
+    cfg = configs.get_config(LM["arch"])
+    t0 = time.perf_counter()
+    params = model.init_params(cfg, seed=LM["seed"], device=dev)
+    n_params = sum(t.numel() for t in model.tree_leaves(params))
+    loop = serve.ServeLoop(cfg, params, batch=LM["batch"], max_len=LM["max_len"])
+    del params
+    torch.cuda.empty_cache()
+    sync(dev)
+    print(f"[lm] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, "
+          f"window {cfg.stages[0][1][0].window}, {n_params / 1e9:.3f} B params "
+          f"(seed {LM['seed']}), {cfg.dtype}; init + cast "
+          f"{time.perf_counter() - t0:.1f} s")
+    rng = np.random.default_rng(LM["seed"])
+    reqs = [serve.Request(prompt=rng.integers(0, cfg.vocab_size, s).astype(np.int32),
+                          max_new_tokens=LM["new_tokens"])
+            for n, s in LM["waves"] for _ in range(n)]
+    calls: list = []
+    real = serve.model
+    serve.model = serve_shim(real, dev, calls)
+    try:
+        torch.cuda.reset_peak_memory_stats(dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        loop.run(reqs)
+        sync(dev)
+        run_s = time.perf_counter() - t0
+        counts = counts_now()
+    finally:
+        serve.model = real
+    peak = torch.cuda.max_memory_allocated(dev)
+    gate_counts("lm", counts, ("flash_attention", "rmsnorm"))
+    norms = 2 * cfg.n_layers + 1
+    pre = [c for c in calls if c["kind"] == "prefill"]
+    dec = [c for c in calls if c["kind"] == "decode"]
+    expect(all(len(r.generated) == LM["new_tokens"] for r in reqs),
+           f"lm: generated {[len(r.generated) for r in reqs]}")
+    expect(len(pre) == len(reqs), f"lm: {len(pre)} prefills for {len(reqs)} requests")
+    expect(all(c["finite"] for c in calls), "lm: non-finite logits")
+    for c in pre:
+        expect(c["launches"].get("flash_attention") == cfg.n_layers
+               and c["launches"].get("rmsnorm") == norms,
+               f"lm: a prefill launched {c['launches']}")
+    for c in dec:
+        expect("flash_attention" not in c["launches"]
+               and c["launches"].get("rmsnorm") == norms,
+               f"lm: a decode step launched {c['launches']}")
+    expect(counts["flash_attention"] == cfg.n_layers * len(reqs),
+           f"lm: flash_attention launched {counts['flash_attention']} times")
+    out = dict(counts=counts, run_s=run_s, peak=peak, prefill={}, decode={})
+    # Each wave drains before the next is admitted: the calls come as the
+    # wave's prefills, then its decode steps.
+    start = 0
+    for n, s in LM["waves"]:
+        wave = calls[start:start + n + LM["new_tokens"] - 1]
+        start += len(wave)
+        fills = [c["s"] for c in wave if c["kind"] == "prefill"]
+        steps = [c["s"] for c in wave if c["kind"] == "decode"]
+        expect(len(fills) == n and all(c["tokens"] == s for c in wave[:n]),
+               f"lm: wave of {s} tokens out of order")
+        step = float(np.median(steps))
+        out["prefill"][s] = dict(first=fills[0], warm=float(np.median(fills[1:])))
+        out["decode"][s] = step
+        print(f"[lm] prompts of {s}: prefill first {fills[0] * 1e3:.1f} ms, warm "
+              f"median {out['prefill'][s]['warm'] * 1e3:.1f} ms (of {n - 1}); decode "
+              f"{len(steps)} steps at batch {n}: median {step * 1e3:.2f} ms/step, "
+              f"{n / step:.1f} tokens/s")
+    print(f"[lm] served {len(reqs)} requests x {LM['new_tokens']} tokens in "
+          f"{run_s:.2f} s; max_memory_allocated {peak / 2**20:.0f} MiB; launches "
+          f"per prefill {json.dumps(pre[0]['launches'])}, per decode step "
+          f"{json.dumps(dec[0]['launches'])}")
+    # Device busy share of one decode step and one prefill of the last wave.
+    token = torch.zeros((LM["batch"], 1), dtype=torch.long, device=dev)
+    pos = LM["waves"][-1][1] + LM["new_tokens"]
+    step = lambda: model.decode_step(loop.params, loop.cache, cfg, token, pos)  # noqa: E731
+    warm = float(np.median([timed_call(step, dev)[1] for _ in range(5)]))
+    out["busy_decode"] = profile_busy(f"lm decode step (batch {LM['batch']})",
+                                      step, dev, warm)
+    prompt = torch.as_tensor(reqs[-1].prompt[None], device=dev).long()
+    fill = lambda: model.prefill(loop.params, cfg, prompt, max_len=LM["max_len"])  # noqa: E731
+    warm = float(np.median([timed_call(fill, dev)[1] for _ in range(2)]))
+    out["busy_prefill"] = profile_busy(f"lm prefill ({prompt.shape[1]} tokens)",
+                                       fill, dev, warm)
+    del loop, calls, step, fill
+    torch.cuda.empty_cache()
+    lm_check(dev)
+    return out
+
+
+# --------------------------------------------------------------------------
 # Phase 5: timing at the main-path shapes
 # --------------------------------------------------------------------------
 
@@ -1476,9 +1812,10 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
     return e0.elapsed_time(e1) / reps
 
 
-def bound(bytes_moved: float, flops: float) -> tuple[float, str]:
+def bound(bytes_moved: float, flops: float,
+          flop_rate: float = F32_FLOP_PER_S) -> tuple[float, str]:
     tb = bytes_moved / HBM_BYTES_PER_S * 1e3
-    tf = flops / F32_FLOP_PER_S * 1e3
+    tf = flops / flop_rate * 1e3
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
@@ -1513,12 +1850,12 @@ def phase_timing(dev, results: dict) -> list[dict]:
     n, s, t = MAIN["n_nodes"], MAIN["n_samples"], MAIN["n_train"]
     seed = main["out"]["seed"]
     # Launches of each kernel summed over the paths' runs (main, fit,
-    # serving, and the two BO loops), each counted from 0.
+    # serving, the two BO loops, solvers and lm), each counted from 0.
     path_counts = [main["counts"], results["fit"]["counts"],
                    results["serving"]["counts"],
                    *(results["bo"][e]["counts"] for e in ("incremental",
                                                           "refit-chunked")),
-                   results["solvers"]["counts"]]
+                   results["solvers"]["counts"], results["lm"]["counts"]]
     counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     nodes = torch.arange(n, dtype=torch.int32, device=dev)
     wkw = dict(n_walkers=wcfg.n_walkers, p_halt=wcfg.p_halt, l_max=wcfg.l_max)
@@ -1626,6 +1963,8 @@ def phase_timing(dev, results: dict) -> list[dict]:
     timing_fit(dev, results["fit"], n)
     rows.append(timing_gram(dev, results["serving"], counts["gram_block"]))
     rows.append(timing_woodbury(dev, results["solvers"], counts["woodbury_apply"]))
+    rows.append(timing_flash(dev, counts["flash_attention"]))
+    rows.append(timing_rmsnorm(dev, counts["rmsnorm"]))
     return rows
 
 
@@ -1809,11 +2148,17 @@ def timing_woodbury(dev, solv: dict, launches: int) -> dict:
     expect(rel <= KERNEL_RTOL, f"khat_fused at the solvers CG shape: rel {rel:.2e}")
     nnz = int((vals != 0).sum())
     kb = bound(t * vals.shape[1] * 8 + 2 * t * 4, 4 * nnz)
+    # The library yardstick: the composed torch.sparse.mm pair Φ_x(Φ_xᵀ p) on
+    # CSR copies, as at the posterior's shapes.
+    ax, ax_t = csr(vals, cols_x, n), csr(vals, cols_x, n, transpose=True)
+    p2 = p[:, None]
+    lib = cuda_ms(lambda: torch.sparse.mm(ax, torch.sparse.mm(ax_t, p2)), 50)
     print(f"[timing] khat_fused at the solvers CG shape ([{t}, {vals.shape[1]}], "
           f"R=1, N={n}): kernel "
           f"{cuda_ms(lambda: eops.khat_fused(vals, cols_x, vals, cols_x, p, n), 200):.4f} ms, "
           f"plain {cuda_ms(lambda: eref.khat_matvec_ref(vals, cols_x, vals, cols_x, p, n), 50):.4f} ms, "
-          f"bound {kb[0] * 1e3:.3f} us ({kb[1]}), max_abs_err {err:.3e} (rel {rel:.2e})")
+          f"bound {kb[0] * 1e3:.3f} us ({kb[1]}), library (composed torch.sparse.mm "
+          f"pair) {lib:.4f} ms, max_abs_err {err:.3e} (rel {rel:.2e})")
     head = next(x for x in shapes if x["shape"] == [t, SOLVE["rank"], 1])
     return dict(name="woodbury_apply", route="cuda",
                 source="src/repro_torch/kernels/csrc/woodbury_apply.cu",
@@ -1822,6 +2167,103 @@ def timing_woodbury(dev, solv: dict, launches: int) -> dict:
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
                 library_ms=None, shapes=shapes)
+
+
+def window_pairs(s: int, w: int) -> int:
+    """(query, key) pairs that causal attention with window w leaves open
+    over s positions: Σ_i min(i + 1, w)."""
+    if s <= w:
+        return s * (s + 1) // 2
+    return w * (w + 1) // 2 + (s - w) * w
+
+
+def timing_flash(dev, launches: int) -> dict:
+    """flash_attention at the LM path's prefill shapes (danube, bf16,
+    causal, window 4096), against mha_ref and SDPA with a boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    _, h, hkv, _, _, d = ATTN_CASES[-4][0]
+    w = ATTN_CASES[-4][1]["window"]
+    shapes = []
+    for i, s in enumerate(sorted({n for _, n in LM["waves"]})):
+        q, k, v = attn_inputs(dev, (1, h, hkv, s, s, d), torch.bfloat16, 300 + i)
+        kw = dict(causal=True, window=w)
+        errs = bf16_err(ops.flash_attention(q, k, v, **kw), ref.mha_ref(q, k, v, **kw))
+        expect(errs[1] <= BF16_ULPS, f"flash_attention at S={s}: {errs[1]:.2f} ulps")
+        reps = 20 if s <= 1024 else 5
+        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), reps)
+        pms = cuda_ms(lambda: ref.mha_ref(q, k, v, **kw), 2, warmup=1)
+        pos = torch.arange(s, device=dev)
+        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, attn_mask=mask, enable_gqa=True), reps)
+        pairs = window_pairs(s, w)
+        # q, k, v read once and o written once (bf16); a multiply-add for
+        # q·k and one for p·v per head dim per open pair and query head.
+        nbytes = (2 * h * s * d + 2 * hkv * s * d) * 2
+        flops = 4 * d * h * pairs
+        b_tc = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+        b_f32 = bound(nbytes, flops)
+        print(f"[timing] flash_attention [1,{h},{s},{d}] / [1,{hkv},{s},{d}] bf16, "
+              f"causal, window {w} ({pairs} open pairs per head, "
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): kernel {ms:.4f} ms, "
+              f"plain {pms:.4f} ms, library (SDPA, boolean mask, enable_gqa) "
+              f"{lib:.4f} ms, bound {b_tc[0]:.4f} ms ({b_tc[1]}, bf16 tensor "
+              f"cores) / {b_f32[0]:.4f} ms ({b_f32[1]}, f32 CUDA cores), "
+              f"max_abs_err {errs[0]:.3e} ({errs[1]:.2f} bf16 ulps of scale)")
+        shapes.append(dict(shape=[1, h, hkv, s, d], ms=ms, plain_ms=pms,
+                           library_ms=lib, bound_ms=b_tc[0], bound_by=b_tc[1],
+                           bound_f32_ms=b_f32[0], max_abs_err=errs[0]))
+        del q, k, v, mask
+        torch.cuda.empty_cache()
+    head = shapes[-1]   # the 4608-token prefill, past the window
+    return dict(name="flash_attention", route="cuda",
+                source="src/repro_torch/kernels/csrc/flash_attention.cu",
+                replaces=REPLACES["flash_attention"], launches=launches,
+                max_abs_err=max(x["max_abs_err"] for x in shapes),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], shapes=shapes)
+
+
+def timing_rmsnorm(dev, launches: int) -> dict:
+    """rmsnorm at the LM path's rows (bf16 x, f32 scale), against
+    rmsnorm_ref and torch.nn.functional.rms_norm with weight 1 + scale."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.rmsnorm import ops, ref
+
+    gen = torch.Generator(device=dev).manual_seed(31)
+    shapes = []
+    for m, d in NORM_SHAPES:
+        x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
+        s = 0.1 * torch.randn((d,), generator=gen, device=dev)
+        errs = bf16_err(ops.apply(x, s), ref.rmsnorm_ref(x, s))
+        expect(errs[1] <= BF16_ULPS, f"rmsnorm at [{m},{d}]: {errs[1]:.2f} ulps")
+        weight = (1.0 + s).to(x.dtype)
+        ms = cuda_ms(lambda: ops.apply(x, s), 200)
+        pms = cuda_ms(lambda: ref.rmsnorm_ref(x, s), 100)
+        lib = cuda_ms(lambda: F.rms_norm(x, (d,), weight=weight, eps=1e-6), 200)
+        # x read once, y written once (bf16), the scale read once (f32).
+        b = bound(2 * m * d * 2 + d * 4, 4 * m * d)
+        print(f"[timing] rmsnorm [{m},{d}] bf16: kernel {ms:.4f} ms, plain "
+              f"{pms:.4f} ms, library (F.rms_norm, weight 1 + scale) {lib:.4f} ms, "
+              f"bound {b[0] * 1e3:.3f} us ({b[1]}), max_abs_err {errs[0]:.3e} "
+              f"({errs[1]:.2f} bf16 ulps of scale)")
+        shapes.append(dict(shape=[m, d], ms=ms, plain_ms=pms, library_ms=lib,
+                           bound_ms=b[0], bound_by=b[1], max_abs_err=errs[0]))
+    head = shapes[0]    # the 4608-token prefill's rows
+    return dict(name="rmsnorm", route="cuda",
+                source="src/repro_torch/kernels/csrc/rmsnorm.cu",
+                replaces=REPLACES["rmsnorm"], launches=launches,
+                max_abs_err=max(x["max_abs_err"] for x in shapes),
+                ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=head["library_ms"], shapes=shapes)
 
 
 # --------------------------------------------------------------------------
@@ -1854,12 +2296,14 @@ def main() -> int:
         ("parity-ell", lambda: check_kernel_cases(dev)),
         ("parity-gram", lambda: check_gram_cases(dev)),
         ("parity-woodbury", lambda: check_woodbury_cases(dev)),
+        ("parity-lm-kernels", lambda: check_lm_kernels(dev)),
         ("main", lambda: phase_main(dev)),
         ("e2e", lambda: phase_e2e(dev)),
         ("fit", lambda: phase_fit(dev)),
         ("serving", lambda: phase_serving(dev)),
         ("bo", lambda: phase_bo(dev)),
         ("solvers", lambda: phase_solvers(dev)),
+        ("lm", lambda: phase_lm(dev)),
     ]
     results = {}
     for name, fn in phases:

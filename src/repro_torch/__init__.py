@@ -1,8 +1,11 @@
-"""PyTorch + CUDA port of the GRF-GP system (first slice: the serving path).
+"""PyTorch + CUDA port of the GRF-GP system and its LM scaffold.
 
 The package mirrors ``src/repro/`` module for module and never imports JAX
-or the JAX package.  Graph random-feature walk sampling, the sparse Φ / Φᵀ /
-K̂ products, Jacobi CG and the pathwise-conditioned posterior run on a CUDA
-card through hand-written kernels (``kernels/csrc/``); a tensor that lies on
-the CPU goes to each kernel's plain PyTorch version instead.
+or the JAX package.  Ported so far: graph random-feature walk sampling, the
+sparse Φ / Φᵀ / K̂ products, Jacobi CG and the pathwise-conditioned posterior;
+the LML fit, online GP serving and Thompson-sampling BO; the Nyström/SLQ
+solver stack; and the LM scaffold's serving path (``models``, ``configs``,
+``launch.serve``).  Every kernel runs on a CUDA card as hand-written CUDA
+(``kernels/csrc/``); a tensor that lies on the CPU goes to each kernel's
+plain PyTorch version instead.
 """

@@ -17,12 +17,16 @@ from __future__ import annotations
 import torch
 
 from .ell_spmv import ops as ell_ops
+from .flash_attention import ops as flash_ops
 from .gram_block import ops as gram_ops
+from .rmsnorm import ops as rmsnorm_ops
 from .walk_sampler import ops as walk_ops
 from .woodbury_apply import ops as wood_ops
 
+# Every kernel's launch count; the LM scaffold's two kernels are called
+# through their own modules (models/layers.py, models/attention.py).
 _COUNTERS = (walk_ops.LAUNCHES, ell_ops.LAUNCHES, gram_ops.LAUNCHES,
-             wood_ops.LAUNCHES)
+             wood_ops.LAUNCHES, flash_ops.LAUNCHES, rmsnorm_ops.LAUNCHES)
 
 
 def _f32(vals: torch.Tensor) -> torch.Tensor:

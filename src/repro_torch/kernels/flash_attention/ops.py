@@ -1,0 +1,115 @@
+"""Wrapper of the flash attention CUDA kernel (csrc/flash_attention.cu) and
+the attention dispatcher of the LM scaffold (port of
+``repro/kernels/flash_attention/ops.py``).
+
+:func:`flash_attention` runs the plain version (``mha_ref``) on CPU tensors
+and launches the kernel on CUDA tensors — on PyTorch's current stream, after
+checking device, dtype, shapes and the head dim's contiguity — or raises.
+The kernel reads q, k and v through their strides (the head dim must be
+contiguous) and writes its output as [B, Sq, H, D] memory, returned as the
+[B, H, Sq, D] view, so that the output projection reads it without a copy.
+
+:func:`attention` keeps the JAX signature.  Decode (Sq == 1) takes the dense
+path on either device, as in the JAX package (memory-bound: one query row per
+head).  Otherwise a CUDA tensor goes to the kernel whatever ``use_pallas``,
+``impl`` or ``interpret`` say, and a CPU tensor to a plain version:
+``impl="chunked"`` selects ``mha_chunked_ref`` (KV blocks of ``block_k``),
+anything else ``mha_ref``.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from .. import build
+from .ref import mha_chunked_ref, mha_ref
+
+# Kernel launches since the last reset (chip_smoke.py reads it).
+LAUNCHES = {"flash_attention": 0}
+
+MAX_HEAD_DIM = 320     # flash_attention_max_head_dim() of the kernel
+
+_X = (torch.float32, torch.bfloat16)
+_VP = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+_ARGS = ([_VP] * 4 + [_I] * 6 + [_LL] * 12
+         + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _VP])
+
+
+def _check(name, q, k, v):
+    for t, n in ((q, "q"), (k, "k"), (v, "v")):
+        if t.dtype not in _X:
+            raise TypeError(f"{name}: {n} must be one of {_X}, got {t.dtype}")
+        if t.dim() != 4:
+            raise ValueError(f"{name}: {n} must be 4-D, got {tuple(t.shape)}")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{name}: {n} must be contiguous in its head dim")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"{name}: q, k, v differ in dtype "
+                        f"({q.dtype}, {k.dtype}, {v.dtype})")
+    b, h, _, d = q.shape
+    if k.shape != v.shape or k.shape[0] != b or k.shape[3] != d:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k {tuple(k.shape)}, "
+                         f"v {tuple(v.shape)} do not fit together")
+    if h % k.shape[1] != 0:
+        raise ValueError(f"{name}: {h} query heads are not a multiple of "
+                         f"{k.shape[1]} kv heads")
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"{name}: head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    if b * h > 65535:
+        raise ValueError(f"{name}: B·H = {b * h} exceeds the grid's 65535")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, window: int | None = None,
+                    softcap: float | None = None) -> torch.Tensor:
+    """Attention of q [B, H, Sq, D] over k, v [B, Hkv, Skv, D] (GQA: kv head
+    = q head // (H / Hkv)); float32 math, q's dtype out; a row that sees no
+    key gives 0 on the card."""
+    name = "flash_attention"
+    if not build.on_cuda(name, q, k, v):
+        return mha_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    _check(name, q, k, v)
+    if window is not None and window < 1:
+        raise ValueError(f"{name}: window must be None or ≥ 1, got {window}")
+    if softcap is not None and softcap <= 0:
+        raise ValueError(f"{name}: softcap must be None or > 0, got {softcap}")
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if out.numel() == 0:
+        return out
+    strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    dev = q.device
+    fn = build.bind(name, "flash_attention_launch", _ARGS)
+    with torch.cuda.device(dev):
+        fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+           b, h, hkv, sq, skv, d, *strides, int(causal),
+           0 if window is None else int(window),
+           0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(d),
+           int(q.dtype == torch.bfloat16), build.stream(dev))
+    LAUNCHES[name] += 1
+    return out
+
+
+def attention(q, k, v, *, causal=True, window=None, softcap=None,
+              use_pallas: bool = True, interpret: bool | None = None,
+              impl: str | None = None, block_k: int = 1024):
+    """Dispatch as the JAX ``ops.attention`` does, by device (see the module
+    docstring); ``interpret`` has no meaning here and is accepted only for
+    the signature's sake."""
+    del interpret
+    if q.shape[2] == 1:
+        return mha_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+    if build.on_cuda("flash_attention", q, k, v):
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               softcap=softcap)
+    if impl is None:
+        impl = "pallas" if use_pallas else "ref"
+    if impl == "chunked":
+        return mha_chunked_ref(q, k, v, causal=causal, window=window,
+                               softcap=softcap, block_k=block_k)
+    return mha_ref(q, k, v, causal=causal, window=window, softcap=softcap)

@@ -1,0 +1,79 @@
+"""Shared building blocks of the LM scaffold: norms, rotary embeddings,
+gated MLP, init (port of ``repro/models/layers.py``).
+
+``rms_norm`` goes through the rmsnorm kernel's wrapper (the CUDA kernel on
+the card, its plain version on the CPU); ``rope`` and ``swiglu`` are plain
+tensor code, as the JAX package leaves them to XLA."""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from ..kernels.rmsnorm import ops as rmsnorm_ops
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
+    """x·rsqrt(mean(x²) + eps)·(1 + scale) over the last dim, f32 math, x's
+    dtype out."""
+    return rmsnorm_ops.apply(x, scale, eps)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """Rotary position embedding.  x: [..., S, D_even]; positions: [S] or [B,S].
+
+    Frequencies and angles in float32, the rotation in float32 (a bf16 x is
+    promoted), then one cast back to x's dtype — as the JAX package does."""
+    d = x.shape[-1]
+    half = d // 2
+    freq = theta ** (-torch.arange(0, half, dtype=torch.float32, device=x.device) / half)
+    angles = positions[..., None].to(torch.float32) * freq   # [..., S, half]
+    while angles.dim() < x.dim():
+        angles = angles[None]
+    cos, sin = torch.cos(angles), torch.sin(angles)
+    x1, x2 = x[..., :half], x[..., half:]
+    rotated = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return rotated.to(x.dtype)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """Gated MLP: down( silu(x·gate) ⊙ (x·up) ).  Weights cast to x's dtype."""
+    h = F.silu(x @ w_gate.to(x.dtype)) * (x @ w_up.to(x.dtype))
+    return h @ w_down.to(x.dtype)
+
+
+def _trunc_normal(gen: torch.Generator, shape) -> torch.Tensor:
+    t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+
+
+def dense_init(gen: torch.Generator, shape, scale: float | None = None) -> torch.Tensor:
+    """scale · truncated normal on [−2, 2] (default scale fan_in^-1/2)."""
+    fan_in = shape[0] if len(shape) >= 2 else shape[-1]
+    scale = scale if scale is not None else fan_in**-0.5
+    return _trunc_normal(gen, shape).mul_(scale)
+
+
+def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
+    # 1/√d so that embed·√d (the lookup scaling) has unit variance and the
+    # tied unembedding produces O(1) logits at init.
+    return _trunc_normal(gen, (vocab, d)).mul_(d**-0.5)
+
+
+class KeyGen:
+    """Deterministic generator dispenser for parameter init.
+
+    The n-th call returns a fresh ``torch.Generator`` on ``device`` seeded
+    from (seed, n), as the JAX KeyGen folds n into its key, so a leaf's
+    values do not depend on the order of other draws.  The two packages draw
+    different numbers from one seed: the tests carry the JAX parameters
+    across instead (``interop.model_params_from_numpy``)."""
+
+    def __init__(self, seed: int, device):
+        self._seed = int(seed)
+        self.device = torch.device(device)
+        self._n = 0
+
+    def __call__(self) -> torch.Generator:
+        self._n += 1
+        gen = torch.Generator(device=self.device)
+        return gen.manual_seed(self._seed * 1_000_003 + self._n)

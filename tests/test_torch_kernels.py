@@ -185,7 +185,7 @@ def test_launch_counters_reset():
     dispatch.reset_launch_counts()
     assert set(dispatch.launch_counts()) == {
         "walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused", "gram_block",
-        "woodbury_apply"}
+        "woodbury_apply", "flash_attention", "rmsnorm"}
     assert all(c == 0 for c in dispatch.launch_counts().values())
 
 
@@ -198,6 +198,8 @@ def test_cuda_sources_name_the_tpu_kernel_they_replace():
         "khat_fused": "src/repro/kernels/ell_spmv/khat_fused.py:83",
         "gram_block": "src/repro/kernels/gram_block/gram_block.py:59",
         "woodbury_apply": "src/repro/kernels/woodbury_apply/woodbury_apply.py:75",
+        "flash_attention": "src/repro/kernels/flash_attention/flash_attention.py:104",
+        "rmsnorm": "src/repro/kernels/rmsnorm/rmsnorm.py:27",
     }
     assert set(build.SOURCES) == set(notes)
     for name, where in notes.items():

@@ -62,15 +62,21 @@ def test_sources_never_import_jax_or_repro():
 
 def test_default_device_is_the_card():
     """Entry points default to CUDA and raise, never fall back, without it."""
-    from repro_torch import device, interop
+    from repro_torch import configs, device, interop
     from repro_torch.core import modulation
     from repro_torch.graphs import generators
+    from repro_torch.models import model
 
+    lm = configs.reduce_config(configs.get_config("h2o-danube-1.8b"))
     calls = [
         lambda: generators.ring(10),
         lambda: generators.grid2d(3, 3),
         lambda: modulation.diffusion(3).init(),
         lambda: interop.trace_from_numpy([[0]], [[1.0]], [[0]]),
+        lambda: model.init_params(lm),
+        lambda: model.init_cache(lm, 1, 8),
+        lambda: interop.model_params_from_numpy({"embed": [[0.0]]}),
+        lambda: interop.cache_from_numpy({"k": [[0.0]]}),
     ]
     if torch.cuda.is_available():
         assert generators.ring(10).neighbors.device.type == "cuda"
@@ -80,6 +86,7 @@ def test_default_device_is_the_card():
             with pytest.raises(RuntimeError, match="device='cpu'"):
                 call()
     assert generators.ring(10, device="cpu").neighbors.device.type == "cpu"
+    assert model.init_params(lm, device="cpu")["embed"].device.type == "cpu"
     assert device.resolve("cpu") == torch.device("cpu")
 
 
