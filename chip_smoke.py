@@ -8,7 +8,9 @@ non-zero exit and no result line):
 
   1. device    card name, `nvidia-smi` name and power limit; build the eight
                CUDA kernels (one nvcc per source, in parallel) and print
-               their `-Xptxas -v` registers / spills.
+               their `-Xptxas -v` registers / spills; the redesigned
+               instances (flash_attention's tensor-core kernels, rmsnorm's
+               16-byte kernels) must spill nothing.
   2. parity    each kernel against its plain PyTorch version on the card at
                ragged shapes (1-D and R in {3, 16}, duplicate columns, zero
                slots, every walk scheme, an isolated node, bf16 K̂ payloads,
@@ -17,11 +19,15 @@ non-zero exit and no result line):
                1-D..64 and scalar / vector / masked D⁻¹), the walk golden
                checksums of the JAX reference, and the five autograd
                Functions against autograd through the plain versions;
-               parity-lm-kernels: rmsnorm at the JAX tests' cases and the LM
-               path's rows, flash_attention at the JAX tests' nine cases and
-               the LM shapes (danube at S = 1024 and 4608, window 4096;
+               parity-lm-kernels: rmsnorm at the JAX tests' cases, the LM
+               path's rows, every config width, M = 0, D = 2566 and an
+               unaligned base; flash_attention at the JAX tests' nine cases
+               and the LM shapes (danube at S = 1024 and 4608, window 4096;
                gemma2-27b's D = 144 with softcap 50; gemma3-4b's D = 320; a
-               cross shape Sq = 128, Skv = 1500), f32 and bf16.
+               cross shape Sq = 128, Skv = 1500), f32 and bf16, and strided
+               and misaligned bf16 views, each gated on the instance the
+               routing rule names (bf16 with D ≤ 256, D % 8 = 0, aligned:
+               the tensor cores).
   3. main      ring(10⁶, k=3), 8 walkers, p_halt 0.2, l_max 5 (K = 48),
                T = 1024 observations, 16 samples: posterior_mean,
                pathwise_samples on the monolithic trace and
@@ -64,7 +70,8 @@ non-zero exit and no result line):
                answers 8 greedy requests of 32 tokens, 4 prompts of 1024
                tokens then 4 of 4608 (past the 4096 window).  Gates: every
                request gets its tokens, flash_attention launches 24 times per
-               prefill and never in a decode step, rmsnorm 49 times per
+               prefill, all on the tensor-core instance, and never in a
+               decode step, rmsnorm 49 times per
                prefill and per step, finite logits.  Prefill ms (first,
                warm) per prompt length, decode ms per step and tokens/s,
                peak memory, launches per call, and the busy share of one
@@ -78,9 +85,13 @@ non-zero exit and no result line):
                T = 4000 for r in {64, 128, 256} and R in {1, 9, 16}; the K̂
                backward and the fused kernel's N·R zeroing at the fit's
                shape; the fused kernel at the solvers' CG shape;
-               flash_attention at danube's prefill shapes, with both the bf16
+               flash_attention at danube's prefill shapes, each instance as
+               the device time of CUDA-graph replays, SDPA with a boolean
+               mask and, at S = 1024, SDPA is_causal, with both the bf16
                tensor-core bound, used in the row, and the f32 one; rmsnorm
-               at the LM rows); printed as one {"kernels": [...]} line.
+               at the LM rows, graph replays beside the eager loop, and the
+               host µs per call against F.rms_norm); printed as one
+               {"kernels": [...]} line.
 
 Each path (main, fit, serving, each BO loop, solvers, lm) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
@@ -212,6 +223,11 @@ REPLACES = {
 }
 
 
+# Kernel functions of the redesigned instances, whose ptxas spills are gated
+# at 0: flash_attention's tensor-core instance, rmsnorm's 16-byte instance.
+REDESIGNED = ("flash_fwd_tc", "rmsnorm_vec")
+
+
 class PhaseError(RuntimeError):
     pass
 
@@ -273,6 +289,19 @@ def phase_device(dev) -> str:
     for name, lines in build.ptxas_report().items():
         for ln in lines.splitlines():
             print(f"[ptxas] {name}: {ln.strip()}")
+    # The redesigned instances — flash_attention's tensor-core kernels and
+    # rmsnorm's 16-byte kernels — spill nothing.
+    redesigned = [f for n in ("flash_attention", "rmsnorm")
+                  for f in build.ptxas_functions(n)
+                  if any(k in f["function"] for k in REDESIGNED)]
+    expect(len(redesigned) > 0, "no ptxas entry for the redesigned kernels")
+    for f in redesigned:
+        print(f"[ptxas] redesigned {f['function']}: {f['registers']} registers, "
+              f"spill stores {f['spill_stores']} B, spill loads {f['spill_loads']} B")
+    spilling = [f["function"] for f in redesigned
+                if f["spill_stores"] or f["spill_loads"]]
+    expect(not spilling, f"redesigned instances spill: {spilling}")
+    print(f"[ptxas] {len(redesigned)} redesigned instances, no spills")
     return smi
 
 
@@ -1543,16 +1572,32 @@ def attn_inputs(dev, shape, dtype, seed):
                  for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d)))
 
 
-def attn_case(dev, shape, kw, dtype, seed) -> tuple[float, float]:
+def tc_expected(dtype, d: int) -> bool:
+    """The routing rule for aligned inputs: bf16 with D a multiple of 8 up
+    to 256 runs on the tensor cores, everything else on the CUDA cores."""
+    import torch
+
+    return dtype == torch.bfloat16 and d % 8 == 0 and d <= 256
+
+
+def attn_case(dev, shape, kw, dtype, seed, qkv=None) -> tuple[float, float]:
     """One flash_attention call against mha_ref on the card: (max abs err,
-    rel err for f32 or bf16 ulps of scale)."""
+    rel err for f32 or bf16 ulps of scale).  Gates the instance it took:
+    the tensor cores where the rule says so for aligned inputs (the CUDA
+    cores for the misaligned views that ``qkv`` may pass)."""
     import torch
 
     from repro_torch.kernels.flash_attention import ops, ref
 
-    q, k, v = attn_inputs(dev, shape, dtype, seed)
+    q, k, v = attn_inputs(dev, shape, dtype, seed) if qkv is None else qkv
+    before = dict(ops.LAUNCHES)
     got = ops.flash_attention(q, k, v, **kw)
     sync(dev)
+    want_tc = tc_expected(dtype, shape[-1]) and ops.aligned(q, k, v)
+    inst = ops.TENSOR_CORE if want_tc else ops.CUDA_CORE
+    expect(ops.LAUNCHES[inst] == before[inst] + 1
+           and ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1,
+           f"flash_attention {shape} {kw} {dtype}: expected one {inst} launch")
     want = ref.mha_ref(q, k, v, **kw)
     expect(got.dtype == dtype and got.shape == want.shape,
            f"flash_attention {shape} {kw}: {got.dtype} {tuple(got.shape)}")
@@ -1570,14 +1615,31 @@ def check_flash_cases(dev) -> None:
     cases and the LM path's shapes, float32 and bf16."""
     import torch
 
+    from repro_torch.kernels.flash_attention import ops
+
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    before = dict(ops.LAUNCHES)
     for i, (shape, kw) in enumerate(ATTN_CASES):
         for dt in (torch.float32, torch.bfloat16):
             worst[dt] = max(worst[dt], attn_case(dev, shape, kw, dt, 100 + i)[1])
-    print(f"[parity] flash_attention matches mha_ref in {2 * len(ATTN_CASES)} cases "
-          f"(the JAX tests' nine and the LM path's shapes, f32 and bf16): f32 "
-          f"rel {worst[torch.float32]:.2e} (limit {ATTN_RTOL:g}), bf16 "
-          f"{worst[torch.bfloat16]:.2f} ulps of scale (limit {BF16_ULPS})")
+    # Strided views of [B, S, H, D] projections, and views whose base is 2
+    # bytes off 16 (a head-dim slice), which the rule sends to the CUDA cores.
+    for i, (b, h, hkv, s, d) in enumerate(((2, 8, 2, 300, 80), (1, 4, 4, 200, 128))):
+        gen = torch.Generator(device=dev).manual_seed(200 + i)
+        q, k, v = (torch.randn((b, s, n, d + 8), generator=gen, device=dev)
+                   .to(torch.bfloat16).transpose(1, 2) for n in (h, hkv, hkv))
+        for off in (0, 1):
+            views = tuple(t[..., off:off + d] for t in (q, k, v))
+            err = attn_case(dev, (b, h, hkv, s, s, d), dict(window=128),
+                            torch.bfloat16, 0, qkv=views)[1]
+            worst[torch.bfloat16] = max(worst[torch.bfloat16], err)
+    n = {k: ops.LAUNCHES[k] - before[k] for k in (ops.TENSOR_CORE, ops.CUDA_CORE)}
+    print(f"[parity] flash_attention matches mha_ref in {2 * len(ATTN_CASES) + 4} "
+          f"cases (the JAX tests' nine and the LM path's shapes, f32 and bf16; "
+          f"strided and misaligned bf16 views): f32 rel "
+          f"{worst[torch.float32]:.2e} (limit {ATTN_RTOL:g}), bf16 "
+          f"{worst[torch.bfloat16]:.2f} ulps of scale (limit {BF16_ULPS}); "
+          f"launches by instance {json.dumps(n)}")
 
 
 def check_rmsnorm_cases(dev) -> None:
@@ -1588,7 +1650,8 @@ def check_rmsnorm_cases(dev) -> None:
     from repro_torch.kernels.rmsnorm import ops, ref
 
     shapes = [(8, 64), (100, 256), (33, 128), (224, 96), (4608, 2560),
-              (1024, 2560), (4, 2560), (1, 2560), (3, 5120)]
+              (1024, 2560), (4, 2560), (1, 2560), (3, 5120), (5, 2048),
+              (2, 3840), (6, 4096), (7, 4608), (37, 2566), (0, 2560)]
     gen = torch.Generator(device=dev).manual_seed(21)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for m, d in shapes:
@@ -1597,7 +1660,10 @@ def check_rmsnorm_cases(dev) -> None:
         for dt in (torch.float32, torch.bfloat16):
             got = ops.apply(x.to(dt), s)
             want = ref.rmsnorm_ref(x.to(dt), s)
-            expect(got.dtype == dt, f"rmsnorm [{m},{d}] returns {got.dtype}")
+            expect(got.dtype == dt and got.shape == (m, d),
+                   f"rmsnorm [{m},{d}] returns {got.dtype} {tuple(got.shape)}")
+            if m == 0:
+                continue
             if dt == torch.float32:
                 err = rel_err(got, want)[1]
                 expect(err <= NORM_RTOL, f"rmsnorm [{m},{d}] f32: rel {err:.2e}")
@@ -1609,9 +1675,16 @@ def check_rmsnorm_cases(dev) -> None:
     z = torch.zeros(64, device=dev)
     expect(rel_err(ops.apply(x3, z), ref.rmsnorm_ref(x3, z))[1] <= NORM_RTOL,
            "rmsnorm 3-D input")
-    print(f"[parity] rmsnorm matches rmsnorm_ref at {len(shapes)} shapes and a "
-          f"3-D input: f32 rel {worst[torch.float32]:.2e} (limit {NORM_RTOL:g}), "
-          f"bf16 {worst[torch.bfloat16]:.2f} ulps of scale (limit {BF16_ULPS})")
+    # A row base one element off 16 bytes (the scalar instance).
+    flat = torch.randn(1 + 9 * 2560, generator=gen, device=dev).to(torch.bfloat16)
+    xu, su = flat[1:].view(9, 2560), 0.1 * torch.randn(2560, generator=gen, device=dev)
+    err = bf16_err(ops.apply(xu, su), ref.rmsnorm_ref(xu, su))[1]
+    expect(err <= BF16_ULPS, f"rmsnorm unaligned base: {err:.2f} ulps")
+    print(f"[parity] rmsnorm matches rmsnorm_ref at {len(shapes)} shapes (M = 0 "
+          f"to 4608, every config width, D = 2566), a 3-D input and an "
+          f"unaligned base: f32 rel {worst[torch.float32]:.2e} (limit "
+          f"{NORM_RTOL:g}), bf16 {worst[torch.bfloat16]:.2f} ulps of scale "
+          f"(limit {BF16_ULPS})")
 
 
 def check_lm_kernels(dev) -> None:
@@ -1699,6 +1772,7 @@ def phase_lm(dev) -> dict:
     import torch
 
     from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as flash_ops
     from repro_torch.launch import serve
     from repro_torch.models import model
 
@@ -1733,7 +1807,8 @@ def phase_lm(dev) -> dict:
     finally:
         serve.model = real
     peak = torch.cuda.max_memory_allocated(dev)
-    gate_counts("lm", counts, ("flash_attention", "rmsnorm"))
+    tc = flash_ops.TENSOR_CORE
+    gate_counts("lm", counts, ("flash_attention", tc, "rmsnorm"))
     norms = 2 * cfg.n_layers + 1
     pre = [c for c in calls if c["kind"] == "prefill"]
     dec = [c for c in calls if c["kind"] == "decode"]
@@ -1741,16 +1816,19 @@ def phase_lm(dev) -> dict:
            f"lm: generated {[len(r.generated) for r in reqs]}")
     expect(len(pre) == len(reqs), f"lm: {len(pre)} prefills for {len(reqs)} requests")
     expect(all(c["finite"] for c in calls), "lm: non-finite logits")
-    for c in pre:
+    for c in pre:   # every layer's attention on the tensor-core instance
         expect(c["launches"].get("flash_attention") == cfg.n_layers
+               and c["launches"].get(tc) == cfg.n_layers
                and c["launches"].get("rmsnorm") == norms,
                f"lm: a prefill launched {c['launches']}")
     for c in dec:
         expect("flash_attention" not in c["launches"]
                and c["launches"].get("rmsnorm") == norms,
                f"lm: a decode step launched {c['launches']}")
-    expect(counts["flash_attention"] == cfg.n_layers * len(reqs),
-           f"lm: flash_attention launched {counts['flash_attention']} times")
+    expect(counts["flash_attention"] == cfg.n_layers * len(reqs)
+           and counts[tc] == counts["flash_attention"],
+           f"lm: flash_attention launched {counts['flash_attention']} times, "
+           f"{counts[tc]} on the tensor cores")
     out = dict(counts=counts, run_s=run_s, peak=peak, prefill={}, decode={})
     # Each wave drains before the next is admitted: the calls come as the
     # wave's prefills, then its decode steps.
@@ -1773,18 +1851,23 @@ def phase_lm(dev) -> dict:
           f"{run_s:.2f} s; max_memory_allocated {peak / 2**20:.0f} MiB; launches "
           f"per prefill {json.dumps(pre[0]['launches'])}, per decode step "
           f"{json.dumps(dec[0]['launches'])}")
-    # Device busy share of one decode step and one prefill of the last wave.
+    # Device busy share of one decode step, and of one prefill at each
+    # prompt length (a wave's first request).
     token = torch.zeros((LM["batch"], 1), dtype=torch.long, device=dev)
     pos = LM["waves"][-1][1] + LM["new_tokens"]
     step = lambda: model.decode_step(loop.params, loop.cache, cfg, token, pos)  # noqa: E731
     warm = float(np.median([timed_call(step, dev)[1] for _ in range(5)]))
     out["busy_decode"] = profile_busy(f"lm decode step (batch {LM['batch']})",
                                       step, dev, warm)
-    prompt = torch.as_tensor(reqs[-1].prompt[None], device=dev).long()
-    fill = lambda: model.prefill(loop.params, cfg, prompt, max_len=LM["max_len"])  # noqa: E731
-    warm = float(np.median([timed_call(fill, dev)[1] for _ in range(2)]))
-    out["busy_prefill"] = profile_busy(f"lm prefill ({prompt.shape[1]} tokens)",
-                                       fill, dev, warm)
+    out["busy_prefill"] = {}
+    first = 0
+    for n, s in LM["waves"]:
+        prompt = torch.as_tensor(reqs[first].prompt[None], device=dev).long()
+        first += n
+        fill = lambda: model.prefill(loop.params, cfg, prompt, max_len=LM["max_len"])  # noqa: E731
+        warm = float(np.median([timed_call(fill, dev)[1] for _ in range(2)]))
+        out["busy_prefill"][s] = profile_busy(f"lm prefill ({s} tokens)", fill,
+                                              dev, warm)
     del loop, calls, step, fill
     torch.cuda.empty_cache()
     lm_check(dev)
@@ -1809,6 +1892,35 @@ def cuda_ms(fn, reps: int, warmup: int = 2) -> float:
         fn()
     e1.record()
     torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def graph_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls captured in one CUDA
+    graph, replayed and timed with CUDA events, so that no host time falls
+    between launches (a loop of short calls is otherwise bound by the host:
+    see the eager numbers beside)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):   # warm up outside the capture
+        fn()
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(reps):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    e0 = torch.cuda.Event(enable_timing=True)
+    e1 = torch.cuda.Event(enable_timing=True)
+    e0.record()
+    graph.replay()
+    e1.record()
+    torch.cuda.synchronize()
+    del graph
     return e0.elapsed_time(e1) / reps
 
 
@@ -2179,7 +2291,10 @@ def window_pairs(s: int, w: int) -> int:
 
 def timing_flash(dev, launches: int) -> dict:
     """flash_attention at the LM path's prefill shapes (danube, bf16,
-    causal, window 4096), against mha_ref and SDPA with a boolean mask."""
+    causal, window 4096): each instance apart (device time of graph
+    replays), the wrapper's eager loop, mha_ref, SDPA with a boolean mask
+    and, where the window is wider than the prompt (the same function), SDPA
+    with is_causal."""
     import torch
     import torch.nn.functional as F
 
@@ -2191,15 +2306,27 @@ def timing_flash(dev, launches: int) -> dict:
     for i, s in enumerate(sorted({n for _, n in LM["waves"]})):
         q, k, v = attn_inputs(dev, (1, h, hkv, s, s, d), torch.bfloat16, 300 + i)
         kw = dict(causal=True, window=w)
-        errs = bf16_err(ops.flash_attention(q, k, v, **kw), ref.mha_ref(q, k, v, **kw))
+        want = ref.mha_ref(q, k, v, **kw)
+        errs = bf16_err(ops.flash_attention(q, k, v, **kw), want)
         expect(errs[1] <= BF16_ULPS, f"flash_attention at S={s}: {errs[1]:.2f} ulps")
-        reps = 20 if s <= 1024 else 5
-        ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), reps)
+        cc_err = bf16_err(ops.launch(ops.CUDA_CORE, q, k, v, softcap=None, **kw),
+                          want)
+        expect(cc_err[1] <= BF16_ULPS,
+               f"flash_attention CUDA-core at S={s}: {cc_err[1]:.2f} ulps")
+        del want
+        reps = 50 if s <= 1024 else 20
+        ms = graph_ms(lambda: ops.launch(ops.TENSOR_CORE, q, k, v, softcap=None,
+                                         **kw), reps)
+        cc_ms = graph_ms(lambda: ops.launch(ops.CUDA_CORE, q, k, v, softcap=None,
+                                            **kw), 5)
+        eager_ms = cuda_ms(lambda: ops.flash_attention(q, k, v, **kw), reps)
         pms = cuda_ms(lambda: ref.mha_ref(q, k, v, **kw), 2, warmup=1)
         pos = torch.arange(s, device=dev)
         mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(
+        lib = graph_ms(lambda: F.scaled_dot_product_attention(
             q, k, v, attn_mask=mask, enable_gqa=True), reps)
+        lib_causal = graph_ms(lambda: F.scaled_dot_product_attention(
+            q, k, v, is_causal=True, enable_gqa=True), reps) if s <= w else None
         pairs = window_pairs(s, w)
         # q, k, v read once and o written once (bf16); a multiply-add for
         # q·k and one for p·v per head dim per open pair and query head.
@@ -2207,16 +2334,25 @@ def timing_flash(dev, launches: int) -> dict:
         flops = 4 * d * h * pairs
         b_tc = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
         b_f32 = bound(nbytes, flops)
+        causal_txt = ("n/a (the window is narrower than the prompt)"
+                      if lib_causal is None else f"{lib_causal:.4f} ms")
         print(f"[timing] flash_attention [1,{h},{s},{d}] / [1,{hkv},{s},{d}] bf16, "
               f"causal, window {w} ({pairs} open pairs per head, "
-              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): kernel {ms:.4f} ms, "
-              f"plain {pms:.4f} ms, library (SDPA, boolean mask, enable_gqa) "
-              f"{lib:.4f} ms, bound {b_tc[0]:.4f} ms ({b_tc[1]}, bf16 tensor "
-              f"cores) / {b_f32[0]:.4f} ms ({b_f32[1]}, f32 CUDA cores), "
-              f"max_abs_err {errs[0]:.3e} ({errs[1]:.2f} bf16 ulps of scale)")
-        shapes.append(dict(shape=[1, h, hkv, s, d], ms=ms, plain_ms=pms,
-                           library_ms=lib, bound_ms=b_tc[0], bound_by=b_tc[1],
-                           bound_f32_ms=b_f32[0], max_abs_err=errs[0]))
+              f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): tensor-core "
+              f"instance {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+              f"{100 * b_tc[0] / ms:.1f}% of the bound), CUDA-core instance "
+              f"{cc_ms:.4f} ms (graph replays); wrapper eager loop "
+              f"{eager_ms:.4f} ms; plain {pms:.4f} ms; library (SDPA, boolean "
+              f"mask, enable_gqa) {lib:.4f} ms, SDPA is_causal {causal_txt}; "
+              f"bound {b_tc[0]:.4f} ms ({b_tc[1]}, bf16 tensor cores) / "
+              f"{b_f32[0]:.4f} ms ({b_f32[1]}, f32 CUDA cores); max_abs_err "
+              f"{errs[0]:.3e} ({errs[1]:.2f} bf16 ulps of scale; CUDA-core "
+              f"{cc_err[1]:.2f})")
+        shapes.append(dict(shape=[1, h, hkv, s, d], ms=ms, cuda_core_ms=cc_ms,
+                           eager_ms=eager_ms, plain_ms=pms, library_ms=lib,
+                           library_causal_ms=lib_causal, bound_ms=b_tc[0],
+                           bound_by=b_tc[1], bound_f32_ms=b_f32[0],
+                           max_abs_err=errs[0]))
         del q, k, v, mask
         torch.cuda.empty_cache()
     head = shapes[-1]   # the 4608-token prefill, past the window
@@ -2229,9 +2365,24 @@ def timing_flash(dev, launches: int) -> dict:
                 library_ms=head["library_ms"], shapes=shapes)
 
 
+def host_us(fn, calls: int = 1000) -> float:
+    """Host wall µs per call over ``calls`` unsynchronised calls."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    wall = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    return wall / calls * 1e6
+
+
 def timing_rmsnorm(dev, launches: int) -> dict:
     """rmsnorm at the LM path's rows (bf16 x, f32 scale), against
-    rmsnorm_ref and torch.nn.functional.rms_norm with weight 1 + scale."""
+    rmsnorm_ref and torch.nn.functional.rms_norm with weight 1 + scale:
+    device time of graph replays, the eager loop, and host time per call."""
     import torch
     import torch.nn.functional as F
 
@@ -2245,16 +2396,28 @@ def timing_rmsnorm(dev, launches: int) -> dict:
         errs = bf16_err(ops.apply(x, s), ref.rmsnorm_ref(x, s))
         expect(errs[1] <= BF16_ULPS, f"rmsnorm at [{m},{d}]: {errs[1]:.2f} ulps")
         weight = (1.0 + s).to(x.dtype)
-        ms = cuda_ms(lambda: ops.apply(x, s), 200)
+        kern = lambda: ops.apply(x, s)  # noqa: E731
+        lib_fn = lambda: F.rms_norm(x, (d,), weight=weight, eps=1e-6)  # noqa: E731
+        ms = graph_ms(kern, 200)
+        lib = graph_ms(lib_fn, 200)
+        eager_ms = cuda_ms(kern, 200)
+        lib_eager = cuda_ms(lib_fn, 200)
         pms = cuda_ms(lambda: ref.rmsnorm_ref(x, s), 100)
-        lib = cuda_ms(lambda: F.rms_norm(x, (d,), weight=weight, eps=1e-6), 200)
+        host, lib_host = host_us(kern), host_us(lib_fn)
         # x read once, y written once (bf16), the scale read once (f32).
         b = bound(2 * m * d * 2 + d * 4, 4 * m * d)
-        print(f"[timing] rmsnorm [{m},{d}] bf16: kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, library (F.rms_norm, weight 1 + scale) {lib:.4f} ms, "
-              f"bound {b[0] * 1e3:.3f} us ({b[1]}), max_abs_err {errs[0]:.3e} "
+        print(f"[timing] rmsnorm [{m},{d}] bf16: kernel {ms * 1e3:.2f} us, library "
+              f"(F.rms_norm, weight 1 + scale) {lib * 1e3:.2f} us (graph replays); "
+              f"eager loop kernel {eager_ms * 1e3:.2f} us, library "
+              f"{lib_eager * 1e3:.2f} us; plain {pms:.4f} ms; bound "
+              f"{b[0] * 1e3:.3f} us ({b[1]}); max_abs_err {errs[0]:.3e} "
               f"({errs[1]:.2f} bf16 ulps of scale)")
-        shapes.append(dict(shape=[m, d], ms=ms, plain_ms=pms, library_ms=lib,
+        print(f"[timing] rmsnorm [{m},{d}] host wall per call over 1000 "
+              f"unsynchronised calls: wrapper {host:.1f} us, F.rms_norm "
+              f"{lib_host:.1f} us ({host / lib_host:.2f}x)")
+        shapes.append(dict(shape=[m, d], ms=ms, eager_ms=eager_ms, plain_ms=pms,
+                           library_ms=lib, library_eager_ms=lib_eager,
+                           host_us=host, library_host_us=lib_host,
                            bound_ms=b[0], bound_by=b[1], max_abs_err=errs[0]))
     head = shapes[0]    # the 4608-token prefill's rows
     return dict(name="rmsnorm", route="cuda",

@@ -13,9 +13,11 @@ Nothing here runs at import: the CPU tests import every module of the port.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -147,11 +149,36 @@ def ptxas_report(names=SOURCES) -> dict[str, str]:
     return out
 
 
+def ptxas_functions(name: str) -> list[dict]:
+    """Each kernel function of a built library, from its ``-Xptxas -v``
+    log: mangled name, registers, spill stores and loads (bytes)."""
+    out, cur = [], None
+    for ln in _paths(name)[2].read_text().splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            cur = dict(function=m.group(1), registers=None, spill_stores=0,
+                       spill_loads=0)
+            out.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            cur["spill_stores"], cur["spill_loads"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", ln)
+        if m:
+            cur["registers"] = int(m.group(1))
+    return out
+
+
 def on_cuda(kernel: str, *tensors) -> bool:
     """True if every tensor lies on one CUDA device, False if all are on the
     CPU; raises on anything else.  This is the whole dispatch rule of the
     port: a CPU tensor goes to the plain version, a CUDA tensor to the
     kernel, and nothing sends a CUDA tensor to the plain version."""
+    first = tensors[0].get_device()   # -1 off the card: no Device objects
+    if first >= 0 and all(t.get_device() == first for t in tensors[1:]):
+        return True
     devices = {t.device for t in tensors}
     if len(devices) == 1:
         (dev,) = devices
@@ -176,10 +203,28 @@ def check(kernel: str, t, name: str, dtypes, ndims) -> None:
         raise ValueError(f"{kernel}: {name} must be contiguous")
 
 
-def ptr(t) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def ptr(t) -> int:
+    """The tensor's data pointer, for a ``c_void_p`` argument."""
+    return t.data_ptr()
 
 
-def stream(device) -> ctypes.c_void_p:
-    """PyTorch's current stream on ``device`` as a C pointer."""
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+def stream(device) -> int:
+    """PyTorch's current stream on ``device`` as a raw pointer, for a
+    ``c_void_p`` argument; read without building a ``torch.cuda.Stream``
+    where the CUDA build of PyTorch offers the raw call."""
+    raw = getattr(torch._C, "_cuda_getCurrentRawStream", None)
+    if raw is not None:
+        return raw(device.index)
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+_CURRENT = contextlib.nullcontext()
+
+
+def device(dev):
+    """A context that makes ``dev`` the current CUDA device for a launch:
+    none at all when it already is (the usual case), since entering
+    ``torch.cuda.device`` costs microseconds of host time every call."""
+    if dev.index == torch.cuda.current_device():
+        return _CURRENT
+    return torch.cuda.device(dev)

@@ -65,7 +65,7 @@ def ell_spmv_raw(vals: torch.Tensor, cols: torch.Tensor,
     y = torch.empty((m,) + tuple(u.shape[1:]), dtype=torch.float32,
                     device=u.device)
     fn = build.bind(name, "ell_spmv_launch", _SPMV_ARGS)
-    with torch.cuda.device(u.device):
+    with build.device(u.device):
         fn(build.ptr(vals), build.ptr(cols), build.ptr(u), build.ptr(y), m, k,
            _width(u), build.stream(u.device))
     LAUNCHES[name] += 1
@@ -86,7 +86,7 @@ def ell_spmv_t_raw(vals: torch.Tensor, cols: torch.Tensor, v: torch.Tensor,
     out = torch.zeros((n_nodes,) + tuple(v.shape[1:]), dtype=torch.float32,
                       device=v.device)
     fn = build.bind(name, "ell_spmv_t_launch", _SPMV_ARGS)
-    with torch.cuda.device(v.device):
+    with build.device(v.device):
         fn(build.ptr(vals), build.ptr(cols), build.ptr(v), build.ptr(out), m,
            k, _width(v), build.stream(v.device))
     LAUNCHES[name] += 1
@@ -121,7 +121,7 @@ def khat_fused_raw(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
     y = torch.empty((m_r,) + tuple(v.shape[1:]), dtype=torch.float32,
                     device=dev)
     fn = build.bind(name, "khat_fused_launch", _KHAT_ARGS)
-    with torch.cuda.device(dev):
+    with build.device(dev):
         fn(build.ptr(vals_rows), build.ptr(cols_rows), build.ptr(vals_cols),
            build.ptr(cols_cols), build.ptr(v), build.ptr(u), build.ptr(y),
            m_r, k_r, m_c, k_c, n_nodes, r,

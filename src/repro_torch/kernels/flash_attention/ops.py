@@ -9,6 +9,15 @@ The kernel reads q, k and v through their strides (the head dim must be
 contiguous) and writes its output as [B, Sq, H, D] memory, returned as the
 [B, H, Sq, D] view, so that the output projection reads it without a copy.
 
+The kernel has two instances, and :func:`route` is the rule between them, a
+function of the dtype, the head dim and the alignment alone (no variable or
+argument selects one): bf16 with D a multiple of 8 up to 256 and every base
+16-byte aligned and every stride (of a dimension longer than 1) a multiple
+of 8 elements takes the tensor-core instance; float32 (whose parity needs
+float32 products), other head dims up to 320, and misaligned bf16 views take
+the CUDA-core one.  ``LAUNCHES`` counts every launch under
+``flash_attention`` and, beside it, each instance's own.
+
 :func:`attention` keeps the JAX signature.  Decode (Sq == 1) takes the dense
 path on either device, as in the JAX package (memory-bound: one query row per
 head).  Otherwise a CUDA tensor goes to the kernel whatever ``use_pallas``,
@@ -26,10 +35,14 @@ import torch
 from .. import build
 from .ref import mha_chunked_ref, mha_ref
 
-# Kernel launches since the last reset (chip_smoke.py reads it).
-LAUNCHES = {"flash_attention": 0}
+TENSOR_CORE = "flash_attention_tensor_core"
+CUDA_CORE = "flash_attention_cuda_core"
+# Kernel launches since the last reset, in all and per instance
+# (chip_smoke.py reads them).
+LAUNCHES = {"flash_attention": 0, TENSOR_CORE: 0, CUDA_CORE: 0}
 
 MAX_HEAD_DIM = 320     # flash_attention_max_head_dim() of the kernel
+MAX_TC_HEAD_DIM = 256  # the tensor-core instance's widest compiled head dim
 
 _X = (torch.float32, torch.bfloat16)
 _VP = ctypes.c_void_p
@@ -37,6 +50,34 @@ _I = ctypes.c_int
 _LL = ctypes.c_longlong
 _ARGS = ([_VP] * 4 + [_I] * 6 + [_LL] * 12
          + [_I, _I, ctypes.c_float, ctypes.c_float, _I, _VP])
+_TC_ARGS = _ARGS[:-2] + [_VP]
+_ENTRY = {TENSOR_CORE: ("flash_attention_tc_launch", _TC_ARGS),
+          CUDA_CORE: ("flash_attention_launch", _ARGS)}
+
+
+def route(dtype, d: int, aligned: bool) -> str:
+    """The instance that takes a call: ``TENSOR_CORE`` or ``CUDA_CORE``;
+    raises for a head dim that neither takes.  ``aligned``: every base is
+    16-byte aligned and every stride of a dimension longer than 1 is a
+    multiple of 8 elements (:func:`aligned`)."""
+    if not 1 <= d <= MAX_HEAD_DIM:
+        raise ValueError(f"flash_attention: head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    if dtype == torch.bfloat16 and d % 8 == 0 and d <= MAX_TC_HEAD_DIM and aligned:
+        return TENSOR_CORE
+    return CUDA_CORE
+
+
+def aligned(*tensors) -> bool:
+    """16-byte bases, and batch, head and sequence strides in multiples of 8
+    elements (16 bytes of bf16) on every such dimension longer than 1: what
+    16-byte copies of head-dim rows need."""
+    for t in tensors:
+        if t.data_ptr() % 16:
+            return False
+        for n, st in zip(t.shape[:3], t.stride()[:3]):
+            if n > 1 and st % 8:
+                return False
+    return True
 
 
 def _check(name, q, k, v):
@@ -57,8 +98,7 @@ def _check(name, q, k, v):
     if h % k.shape[1] != 0:
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
                          f"{k.shape[1]} kv heads")
-    if not 1 <= d <= MAX_HEAD_DIM:
-        raise ValueError(f"{name}: head dim {d} is outside 1..{MAX_HEAD_DIM}")
+    route(q.dtype, d, True)   # the head dim is one that an instance takes
     if b * h > 65535:
         raise ValueError(f"{name}: B·H = {b * h} exceeds the grid's 65535")
 
@@ -77,21 +117,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{name}: window must be None or ≥ 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"{name}: softcap must be None or > 0, got {softcap}")
+    return launch(route(q.dtype, q.shape[3], aligned(q, k, v)), q, k, v,
+                  causal=causal, window=window, softcap=softcap)
+
+
+def launch(inst: str, q, k, v, *, causal: bool, window, softcap):
+    """Launch instance ``inst`` on CUDA tensors that :func:`flash_attention`
+    has checked and routed (chip_smoke.py also times each instance through
+    it); the tensor-core entry refuses what its rule excludes."""
+    name = "flash_attention"
     b, h, sq, d = q.shape
     hkv, skv = k.shape[1], k.shape[2]
     out = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device).transpose(1, 2)
     if out.numel() == 0:
         return out
     strides = [s for t in (q, k, v, out) for s in t.stride()[:3]]
+    args = [build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
+            b, h, hkv, sq, skv, d, *strides, int(causal),
+            0 if window is None else int(window),
+            0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(d)]
+    if inst == CUDA_CORE:
+        args.append(int(q.dtype == torch.bfloat16))
     dev = q.device
-    fn = build.bind(name, "flash_attention_launch", _ARGS)
-    with torch.cuda.device(dev):
-        fn(build.ptr(q), build.ptr(k), build.ptr(v), build.ptr(out),
-           b, h, hkv, sq, skv, d, *strides, int(causal),
-           0 if window is None else int(window),
-           0.0 if softcap is None else float(softcap), 1.0 / math.sqrt(d),
-           int(q.dtype == torch.bfloat16), build.stream(dev))
+    fn = build.bind(name, *_ENTRY[inst])
+    with build.device(dev):
+        fn(*args, build.stream(dev))
     LAUNCHES[name] += 1
+    LAUNCHES[inst] += 1
     return out
 
 

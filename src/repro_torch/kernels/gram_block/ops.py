@@ -56,7 +56,7 @@ def gram_block_raw(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
     if m_r == 0 or m_c == 0:
         return out
     fn = build.bind(name, "gram_block_launch", _ARGS)
-    with torch.cuda.device(dev):
+    with build.device(dev):
         fn(build.ptr(vals_rows), build.ptr(cols_rows), build.ptr(vals_cols),
            build.ptr(cols_cols), build.ptr(out), m_r, k_r, m_c, k_c,
            build.stream(dev))

@@ -65,7 +65,7 @@ def walk_sample(
     inv_c, p32, inv_n, step_w = step_constants(n_walkers, p_halt, l_max)
     sw = (ctypes.c_float * (l_max + 1))(*step_w.tolist())
     fn = build.bind(name, "walk_sample_launch", _ARGTYPES)
-    with torch.cuda.device(dev):
+    with build.device(dev):
         fn(build.ptr(neighbors), build.ptr(weights), build.ptr(deg),
            build.ptr(nodes), build.ptr(cols), build.ptr(loads),
            build.ptr(lens), m, neighbors.shape[1], n_walkers, l_max,

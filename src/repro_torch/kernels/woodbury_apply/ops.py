@@ -74,7 +74,7 @@ def woodbury_apply_raw(b: torch.Tensor, dinv: torch.Tensor, einv: torch.Tensor,
     dev = v.device
     scratch = torch.empty(need, dtype=torch.float32, device=dev)
     fn = build.bind(name, "woodbury_apply_launch", _ARGS)
-    with torch.cuda.device(dev):
+    with build.device(dev):
         fn(build.ptr(b), build.ptr(dinv), build.ptr(einv), build.ptr(v),
            build.ptr(out), build.ptr(scratch), t, r, cols, build.stream(dev))
     LAUNCHES[name] += 1

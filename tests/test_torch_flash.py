@@ -5,11 +5,18 @@ case; the dispatcher's rules; and (marked ``gpu``) the CUDA kernel against
 the plain version on the card at the same cases and at every head dim the
 configs use.
 
+Also the design of the tensor-core instance in plain PyTorch (an online
+softmax over KV blocks in the log2 domain with P rounded to bf16 before P·V
+and l summed from the rounded P) against the JAX kernel on bf16 inputs, and
+the wrapper's routing rule between the two instances as a pure function.
+
 Tolerances, relative to the result's scale: float32 2e-5 (the JAX kernel
 test's: a softmax over ≤ 256 keys summed in another order); bf16 5e-2
 against JAX (as the JAX test: both round q, k, v and o to bf16), and on the
 card 2 bf16 ulps of the scale (the kernel and the plain version both compute
-in float32 and round once).
+in float32 and round once; the tensor-core instance also rounds P to bf16,
+as the TPU's MXU does at default precision).  The bf16-P design against the
+JAX kernel: 2 bf16 ulps of the scale, the card's own gate.
 """
 import math
 
@@ -161,16 +168,129 @@ def test_dispatch_rules_on_cpu():
     close(dense[:, :, 25], v2.mean(2).repeat_interleave(2, 1))
 
 
+def online_bf16_p(q, k, v, *, causal=True, window=None, softcap=None,
+                  block_k=64):
+    """The tensor-core instance's arithmetic in plain PyTorch: S = Q·Kᵀ in
+    float32 over KV blocks, an online softmax in the log2 domain with the
+    scale folded into the exponent, P rounded to bf16 before P·V and the
+    row sum l taken from the rounded P, a row that sees no key 0."""
+    b, h, sq, d = q.shape
+    hkv, skv = k.shape[1], k.shape[2]
+    g = h // hkv
+    log2e = 1.4426950408889634
+    sm = 1.0 / math.sqrt(d)
+    e_mul = 1.0 if softcap else sm * log2e
+    qf = q.float().reshape(b, hkv, g, sq, d)
+    m = torch.full((b, hkv, g, sq), ref.NEG_INF)
+    l = torch.zeros((b, hkv, g, sq))
+    acc = torch.zeros((b, hkv, g, sq, d))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, block_k):
+        kc = k[:, :, k0:k0 + block_k].float()
+        vc = v[:, :, k0:k0 + block_k].float()
+        s = torch.einsum("bhgqd,bhkd->bhgqk", qf, kc)
+        if softcap:
+            s = softcap * log2e * torch.tanh(s * (sm / softcap))
+        kpos = k0 + torch.arange(kc.shape[2])[None, :]
+        mask = torch.ones((sq, kc.shape[2]), dtype=torch.bool)
+        if causal:
+            mask &= kpos <= qpos
+        if window is not None:
+            mask &= kpos > qpos - window
+        s = s.masked_fill(~mask, ref.NEG_INF)
+        tile = s.amax(-1)
+        m_new = torch.maximum(m, torch.where(tile == ref.NEG_INF, tile, tile * e_mul))
+        mu = torch.where(m_new == ref.NEG_INF, torch.zeros_like(m_new), m_new)
+        p = torch.exp2(s * e_mul - mu[..., None]).to(torch.bfloat16).float()
+        alpha = torch.exp2(m - m_new)
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bhkd->bhgqd", p, vc)
+        m = m_new
+    safe = torch.where(l == 0.0, torch.ones_like(l), l)
+    return (acc / safe[..., None]).reshape(b, h, sq, d).to(q.dtype)
+
+
+@pytest.mark.parametrize("softcap", [None, 50.0])
+@pytest.mark.parametrize("window", [None, 128])
+@pytest.mark.parametrize("d", [80, 144])
+def test_bf16_p_design_matches_jax(jx, d, window, softcap):
+    """Rounding P to bf16 (the tensor-core instance's design) keeps the
+    card's 2-ulp gate against the JAX kernel on bf16 inputs, at small
+    danube-like (80) and gemma2-like (144) shapes: H = 4 over one KV head,
+    S = 300 (not a multiple of the tile)."""
+    jnp, jflash, _, _ = jx
+    q, k, v = _inputs((1, 4, 1, 300, 300, d), seed=d)
+    kw = dict(causal=True, window=window, softcap=softcap)
+    jq, jk, jv = (jnp.asarray(a, jnp.bfloat16) for a in (q, k, v))
+    want = np.asarray(jflash(jq, jk, jv, interpret=True, block_q=64, block_k=64,
+                             **kw), np.float32)
+    tq, tk, tv = (_t(a, dtype=torch.bfloat16) for a in (q, k, v))
+    got = online_bf16_p(tq, tk, tv, **kw)
+    assert got.dtype == torch.bfloat16
+    bf16_close(got, want)
+    bf16_close(got, ref.mha_ref(tq, tk, tv, **kw))
+
+
+# The head dims of the configs: danube 80, whisper 64, zamba2 112, llama /
+# moonshot / deepseek 128, gemma2 144, gemma3-12b 240, gemma3-4b 320, the
+# reduced configs 16; and the JAX tests' 32.
+CONFIG_HEAD_DIMS = [16, 32, 64, 80, 112, 128, 144, 240, 320]
+
+
+@pytest.mark.parametrize("d", CONFIG_HEAD_DIMS)
+def test_route_rule(d):
+    """bf16, D a multiple of 8 up to 256 and aligned: the tensor cores;
+    float32, D = 320 or a misaligned view: the CUDA cores."""
+    tc = d <= 256
+    assert ops.route(torch.bfloat16, d, True) == (
+        ops.TENSOR_CORE if tc else ops.CUDA_CORE)
+    assert ops.route(torch.bfloat16, d, False) == ops.CUDA_CORE
+    assert ops.route(torch.float32, d, True) == ops.CUDA_CORE
+    assert ops.route(torch.float32, d, False) == ops.CUDA_CORE
+
+
+@pytest.mark.parametrize("d", [1, 24, 100, 250, 264, 319])
+def test_route_rule_odd_head_dims(d):
+    """Head dims that are not a multiple of 8, or past 256, take the CUDA
+    cores; dims outside 1..320 raise."""
+    want = ops.TENSOR_CORE if d % 8 == 0 and d <= 256 else ops.CUDA_CORE
+    assert ops.route(torch.bfloat16, d, True) == want
+    for bad in (0, 321, 336):
+        with pytest.raises(ValueError, match="head dim"):
+            ops.route(torch.bfloat16, bad, True)
+
+
+def test_alignment_rule():
+    """16-byte bases and batch/head/sequence strides in multiples of 8
+    elements; a stride of a dimension of length 1 does not count."""
+    base = torch.zeros((2, 40, 4, 88), dtype=torch.bfloat16)
+    q = base.transpose(1, 2)[..., :80]                 # [2, 4, 40, 80] view
+    assert ops.aligned(q, q.contiguous())
+    assert not ops.aligned(base.transpose(1, 2)[..., 1:81])   # base 2 bytes off
+    odd = torch.zeros((1, 4, 40, 84), dtype=torch.bfloat16)[..., :80]
+    assert not ops.aligned(odd)                       # row stride 84
+    one = torch.zeros((1, 1, 1, 80), dtype=torch.bfloat16)
+    assert ops.aligned(one.as_strided((1, 1, 1, 80), (3, 5, 7, 1)))
+    assert set(ops.LAUNCHES) == {"flash_attention", ops.TENSOR_CORE, ops.CUDA_CORE}
+
+
 # ---------------------------------------------------------------------------
 # On the card.
 # ---------------------------------------------------------------------------
 
-def _card_case(cuda, shape, kw, dtype):
-    q, k, v = (_t(a, cuda, dtype) for a in _inputs(shape))
-    before = ops.LAUNCHES["flash_attention"]
+def _card_case(cuda, shape, kw, dtype, qkv=None):
+    """One call on the card against mha_ref; the launch went to the
+    instance the rule names (the tensor cores for bf16 with D a multiple of
+    8 up to 256 when aligned)."""
+    q, k, v = (_t(a, cuda, dtype) for a in _inputs(shape)) if qkv is None else qkv
+    before = dict(ops.LAUNCHES)
     got = ops.flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["flash_attention"] == before + 1
+    d = shape[-1]
+    tc = dtype == torch.bfloat16 and d % 8 == 0 and d <= 256 and ops.aligned(q, k, v)
+    inst = ops.TENSOR_CORE if tc else ops.CUDA_CORE
+    assert ops.LAUNCHES["flash_attention"] == before["flash_attention"] + 1
+    assert ops.LAUNCHES[inst] == before[inst] + 1
     want = ref.mha_ref(q, k, v, **kw)
     assert got.dtype == dtype and got.shape == want.shape
     if dtype == torch.float32:
@@ -224,3 +344,46 @@ def test_gpu_kernel_refuses_bad_inputs(cuda):
         ops.flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         ops.flash_attention(q, k.cpu(), v)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("group", [1, 2, 4, 8])
+@pytest.mark.parametrize("d", [16, 32, 64, 80, 112, 128, 144, 240, 256])
+def test_gpu_tensor_core_head_dims_and_groups(cuda, d, group):
+    """The tensor-core instance at every head dim it takes and GQA groups of
+    1, 2, 4 and 8: causal with window and softcap at Sq = 77, cross
+    attention at Sq = 200 over Skv = 333, plain causal at S = 300 (none a
+    multiple of the 128-row or 64-key tile)."""
+    hkv = 8 // group
+    for shape, kw in (((1, 8, hkv, 77, 77, d), dict(window=40, softcap=50.0)),
+                      ((2, 8, hkv, 200, 333, d), dict(causal=False)),
+                      ((1, 8, hkv, 300, 300, d), {})):
+        _card_case(cuda, shape, kw, torch.bfloat16)
+
+
+@pytest.mark.gpu
+def test_gpu_tensor_core_reads_strided_views(cuda):
+    """bf16 q, k, v as transposed views of [B, S, H, D] projections (the LM
+    path's layout) take the tensor cores without a copy."""
+    rng = np.random.default_rng(13)
+    q, k, v = (_t(rng.standard_normal((2, 150, n, 80)).astype(np.float32), cuda,
+                  torch.bfloat16).transpose(1, 2) for n in (8, 2, 2))
+    _card_case(cuda, (2, 8, 2, 150, 150, 80), dict(window=64), torch.bfloat16,
+               qkv=(q, k, v))
+
+
+@pytest.mark.gpu
+def test_gpu_misaligned_views_take_cuda_cores(cuda):
+    """A head-dim slice 2 bytes off a 16-byte base, or a row stride that is
+    not a multiple of 8, routes bf16 to the CUDA-core instance, which gets
+    it right."""
+    rng = np.random.default_rng(14)
+    base = [_t(rng.standard_normal((1, 4, 90, 96)).astype(np.float32), cuda,
+               torch.bfloat16) for _ in range(3)]
+    views = tuple(t[..., 1:81] for t in base)
+    assert not ops.aligned(*views)
+    _card_case(cuda, (1, 4, 4, 90, 90, 80), {}, torch.bfloat16, qkv=views)
+    odd = tuple(_t(rng.standard_normal((1, 2, 50, 84)).astype(np.float32), cuda,
+                   torch.bfloat16)[..., :80] for _ in range(3))
+    assert not ops.aligned(*odd)
+    _card_case(cuda, (1, 2, 2, 50, 50, 80), dict(window=8), torch.bfloat16, qkv=odd)

@@ -164,3 +164,61 @@ def test_gpu_kernel_3d_and_bad_inputs(cuda):
         ops.apply(x.half(), s)
     with pytest.raises(ValueError):
         ops.apply(x, s.cpu())
+
+
+# The configs' d_model widths (moonshot 2048, danube / gemma3-4b 2560,
+# gemma3-12b 3840, llama-3.2-vision 4096, gemma2-27b 4608, deepseek 5120):
+# the 16-byte instance's vector counts.
+CONFIG_WIDTHS = [2048, 2560, 3840, 4096, 4608, 5120]
+
+
+def _card_norm(cuda, x, s):
+    before = ops.LAUNCHES["rmsnorm"]
+    got = ops.apply(x, s)
+    torch.cuda.synchronize()
+    assert ops.LAUNCHES["rmsnorm"] == before + (1 if x.numel() else 0)
+    want = ref.rmsnorm_ref(x, s)
+    assert got.dtype == x.dtype and got.shape == x.shape
+    if x.numel() == 0:
+        return
+    if x.dtype == torch.float32:
+        close(got, want)
+    else:
+        scale_ulps(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", CONFIG_WIDTHS)
+@pytest.mark.parametrize("m", [0, 1, 4, 4608])
+def test_gpu_config_widths(cuda, m, d, dtype):
+    """Every config width at a decode batch (1, 4), a prefill (4608) and no
+    rows at all."""
+    x, scale = _inputs(max(m, 1), d, 3 * m + d)
+    tx = torch.from_numpy(x[:m]).to(cuda).to(getattr(torch, dtype))
+    _card_norm(cuda, tx, torch.from_numpy(scale).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [7, 100, 2566, 12000])
+def test_gpu_widths_off_the_vector(cuda, d, dtype):
+    """Widths that are not a multiple of the 16-byte vector (7, 2566; 100
+    in bf16) or too wide for it (12000) take the scalar instance."""
+    x, scale = _inputs(37, d, d)
+    tx = torch.from_numpy(x).to(cuda).to(getattr(torch, dtype))
+    _card_norm(cuda, tx, torch.from_numpy(scale).to(cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_unaligned_row_base(cuda, dtype):
+    """A contiguous x whose base is one element off 16 bytes, and a scale
+    that is a strided float64 view: the wrapper casts the scale, the kernel
+    takes the scalar instance."""
+    m, d = 9, 2560
+    flat = torch.randn(1 + m * d, device=cuda).to(getattr(torch, dtype))
+    x = flat[1:].view(m, d)
+    assert x.is_contiguous() and x.data_ptr() % 16 != 0
+    s = (0.1 * torch.randn(2 * d, device=cuda, dtype=torch.float64))[::2]
+    _card_norm(cuda, x, s)
