@@ -9,12 +9,17 @@ non-zero exit and no result line):
   1. device    card name, `nvidia-smi` name and power limit; build the eight
                CUDA kernels (one nvcc per source, in parallel) and print
                their `-Xptxas -v` registers / spills; the redesigned
-               instances (flash_attention's tensor-core kernels, rmsnorm's
-               16-byte kernels) must spill nothing.
+               kernels (flash_attention's tensor-core instance, rmsnorm's
+               16-byte instance, khat_fused's segment and gather kernels,
+               gram_block's aggregate and probe kernels) must spill nothing.
   2. parity    each kernel against its plain PyTorch version on the card at
                ragged shapes (1-D and R in {3, 16}, duplicate columns, zero
-               slots, every walk scheme, an isolated node, bf16 K̂ payloads,
-               gram_block at M_r = 1, K_r != K_c and every main-path shape,
+               slots, every walk scheme, an isolated node, bf16 and mixed
+               f32/bf16 K̂ payloads, the cross form over rows whose columns
+               the column payload never touches, an empty column payload,
+               gram_block at M_r = 1, K_r != K_c, every main-path shape and
+               a side of 1 100 000 rows; khat_fused and gram_block bit-equal
+               over two calls,
                woodbury_apply over T in {1, 37, 4000}, r in 1..256, R in
                1-D..64 and scalar / vector / masked D⁻¹), the walk golden
                checksums of the JAX reference, and the five autograd
@@ -24,7 +29,8 @@ non-zero exit and no result line):
                unaligned base; flash_attention at the JAX tests' nine cases
                and the LM shapes (danube at S = 1024 and 4608, window 4096;
                gemma2-27b's D = 144 with softcap 50; gemma3-4b's D = 320; a
-               cross shape Sq = 128, Skv = 1500), f32 and bf16, and strided
+               cross shape Sq = 128, Skv = 1500; B·H = 2049·32, past a grid
+               dimension's 65535), f32 and bf16, and strided
                and misaligned bf16 views, each gated on the instance the
                routing rule names (bf16 with D ≤ 256, D % 8 = 0, aligned:
                the tensor cores).
@@ -81,10 +87,14 @@ non-zero exit and no result line):
                each within 1e-3.
  10. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
-               (gram_block at each of its six shapes; woodbury_apply at
-               T = 4000 for r in {64, 128, 256} and R in {1, 9, 16}; the K̂
-               backward and the fused kernel's N·R zeroing at the fit's
-               shape; the fused kernel at the solvers' CG shape;
+               (gram_block at each of its seven shapes, the Nyström pivot
+               column among them, each against torch.sparse.mm;
+               woodbury_apply at T = 4000 for r in {64, 128, 256} and R in
+               {1, 9, 16}; the K̂ backward at the fit's shape; the fused
+               kernel at the posterior's and the solvers' CG shapes and the
+               cross form, through the walk trace's column index, whose
+               build ms and U are printed, with two calls bit-equal and a
+               profile of one CG iteration that must show no N-long fill;
                flash_attention at danube's prefill shapes, each instance as
                the device time of CUDA-graph replays, SDPA with a boolean
                mask and, at S = 1024, SDPA is_causal, with both the bf16
@@ -129,9 +139,10 @@ BF16_TC_FLOP_PER_S = 989e12  # H100 SXM bf16 dense, on the tensor cores
 #   order — compared exactly as well (max_abs_err reported);
 #   gather sums run over K slots in another order (and with FMA) than
 #   PyTorch's einsum: 1e-5;
-#   scatter and fused K̂ add with float atomics in a run-dependent order: 1e-5
-#   (f32) and 1e-5 for bf16 payloads too, since both sides upcast the same
-#   bf16 values exactly and accumulate in f32;
+#   the scatter adds with float atomics in a run-dependent order and the
+#   fused K̂ sums by column segments in an order of its own: 1e-5 (f32) and
+#   1e-5 for bf16 payloads too, since both sides upcast the same bf16 values
+#   exactly and accumulate in f32;
 #   end-to-end results pass through CG (tol 1e-5 on the relative residual),
 #   whose iterates amplify those rounding differences; chunked vs monolithic
 #   and card vs CPU are held to 1e-4.
@@ -173,10 +184,11 @@ SOLVE = dict(n_nodes=1_000_000, ring_k=3, n_walkers=16, p_halt=0.1, l_max=8,
 WOOD_RANKS = (64, 128, 256)
 WOOD_COLS = (1, 9, 16)
 # gram_block's main-path shapes (M_r, K_r, M_c, K_c): factorisation and
-# refit_alpha, one append, a wave, a moments call, the Thompson cross-Gram
-# and the Thompson q×q Gram.
+# refit_alpha, one append, a wave, a moments call, the Thompson cross-Gram,
+# the Thompson q×q Gram and the Nyström pivot column (solvers phase).
 GRAM_SHAPES = [(128, 144, 128, 144), (1, 144, 128, 144), (64, 144, 128, 144),
-               (256, 144, 128, 144), (512, 144, 128, 144), (512, 144, 512, 144)]
+               (256, 144, 128, 144), (512, 144, 128, 144), (512, 144, 512, 144),
+               (4000, 144, 1, 144)]
 
 # LM serving on h2o-danube-1.8b at its published width (24 layers, d_model
 # 2560, 32/8 heads of 80, window 4096, bf16), random weights from the seed:
@@ -189,9 +201,9 @@ LM = dict(arch="h2o-danube-1.8b", seed=0, batch=4, max_len=5120, new_tokens=32,
 # window 512: prefill(640) + 16 teacher-forced decode steps.
 LM_CHECK = dict(layers=2, window=512, prompt=640, steps=16, rtol=1e-3)
 # flash_attention's parity cases ((b, h, hkv, sq, skv, d), kwargs): the JAX
-# kernel tests' nine, then danube's prefill at both prompt lengths,
-# gemma2-27b's local layer (softcap 50), gemma3-4b's local layer (D = 320)
-# and a cross-attention shape.
+# kernel tests' nine, B·H = 65568 (past a grid dimension's 65535), then
+# danube's prefill at both prompt lengths, gemma2-27b's local layer (softcap
+# 50), gemma3-4b's local layer (D = 320) and a cross-attention shape.
 ATTN_CASES = [
     ((2, 4, 4, 128, 128, 32), {}),
     ((1, 8, 2, 128, 128, 32), {}),
@@ -202,6 +214,7 @@ ATTN_CASES = [
     ((1, 4, 2, 128, 256, 32), dict(causal=False)),
     ((1, 4, 4, 128, 128, 32), dict(window=32, softcap=20.0)),
     ((1, 2, 1, 40, 40, 16), {}),
+    ((2049, 32, 8, 16, 16, 64), {}),
     ((1, 32, 8, 1024, 1024, 80), dict(window=4096)),
     ((1, 32, 8, 4608, 4608, 80), dict(window=4096)),
     ((1, 32, 16, 4608, 4608, 144), dict(window=4096, softcap=50.0)),
@@ -223,9 +236,12 @@ REPLACES = {
 }
 
 
-# Kernel functions of the redesigned instances, whose ptxas spills are gated
-# at 0: flash_attention's tensor-core instance, rmsnorm's 16-byte instance.
-REDESIGNED = ("flash_fwd_tc", "rmsnorm_vec")
+# Kernel functions of the redesigned kernels, by library, whose ptxas spills
+# are gated at 0: flash_attention's tensor-core instance, rmsnorm's 16-byte
+# instance, khat_fused's two kernels and gram_block's two.
+REDESIGNED = {"flash_attention": ("flash_fwd_tc",), "rmsnorm": ("rmsnorm_vec",),
+              "khat_fused": ("khat_segments", "khat_gather"),
+              "gram_block": ("gram_aggregate", "gram_probe")}
 
 
 class PhaseError(RuntimeError):
@@ -289,12 +305,14 @@ def phase_device(dev) -> str:
     for name, lines in build.ptxas_report().items():
         for ln in lines.splitlines():
             print(f"[ptxas] {name}: {ln.strip()}")
-    # The redesigned instances — flash_attention's tensor-core kernels and
-    # rmsnorm's 16-byte kernels — spill nothing.
-    redesigned = [f for n in ("flash_attention", "rmsnorm")
-                  for f in build.ptxas_functions(n)
-                  if any(k in f["function"] for k in REDESIGNED)]
-    expect(len(redesigned) > 0, "no ptxas entry for the redesigned kernels")
+    # The redesigned kernels spill nothing.
+    redesigned = []
+    for lib, names in REDESIGNED.items():
+        found = [f for f in build.ptxas_functions(lib)
+                 if any(k in f["function"] for k in names)]
+        expect(all(any(k in f["function"] for f in found) for k in names),
+               f"no ptxas entry for a redesigned kernel of {lib}")
+        redesigned += found
     for f in redesigned:
         print(f"[ptxas] redesigned {f['function']}: {f['registers']} registers, "
               f"spill stores {f['spill_stores']} B, spill loads {f['spill_loads']} B")
@@ -357,6 +375,47 @@ def check_kernel_cases(dev) -> None:
                     cases += 2
     print("[parity] ell_spmv, ell_spmv_t, khat_fused (f32 + bf16) match their "
           f"plain versions within {KERNEL_RTOL:g} of scale in {cases} ragged cases")
+    check_khat_index_cases(dev, rng)
+
+
+def check_khat_index_cases(dev, rng) -> None:
+    """khat_fused through a column index: the cross form over 50 000 rows
+    whose columns the 1024-row column payload mostly never touches, every
+    pairing of f32 and bf16 payloads, 1-D and R = 16, an empty column
+    payload; two calls bit-equal."""
+    import torch
+
+    from repro_torch.kernels.ell_spmv import index as kindex
+    from repro_torch.kernels.ell_spmv import ops, ref
+
+    t = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+    n = 200_000
+    vr, cr = map(t, _payload(rng, 50_000, 48, n, False, 0.2))
+    vc, cc = map(t, _payload(rng, 1024, 48, n, True, 0.3))   # columns < n/50
+    f32, bf16 = torch.float32, torch.bfloat16
+    cases = 0
+    for r in (None, 16):
+        v = t(rng.standard_normal((1024,) if r is None else (1024, r))
+              .astype(np.float32))
+        for dr, dc in ((f32, f32), (bf16, bf16), (bf16, f32), (f32, bf16)):
+            a, b = vr.to(dr), vc.to(dc)
+            idx = kindex.column_index(cc, b, n)
+            got = ops.khat_fused_raw(a, cr, b, cc, v, n, idx)
+            expect(torch.equal(got, ops.khat_fused_raw(a, cr, b, cc, v, n, idx)),
+                   f"khat_fused cross R={r} {dr}/{dc}: two calls differ")
+            _, rel = rel_err(got, ref.khat_matvec_ref(a, cr, b, cc, v, n))
+            expect(rel <= KERNEL_RTOL,
+                   f"khat_fused cross R={r} {dr}/{dc}: rel {rel:.2e}")
+            cases += 1
+    untouched = float((idx.node_map[cr.long()] < 0).float().mean())
+    empty = ops.khat_fused_raw(vr, cr, vc[:0], cc[:0], v[:0], n)
+    expect(tuple(empty.shape) == (50_000, 16) and not bool(empty.any()),
+           "khat_fused with an empty column payload")
+    print(f"[parity] khat_fused through the column index matches its plain "
+          f"version within {KERNEL_RTOL:g} of scale and repeats bit for bit in "
+          f"{cases} cross-form cases (f32, bf16 and mixed payloads, 1-D and "
+          f"R = 16; {100 * untouched:.1f}% of row slots on untouched columns, "
+          f"U = {idx.n_uniq}); an empty column payload gives 0")
 
 
 def check_walk_cases(dev) -> None:
@@ -634,12 +693,24 @@ def check_gram_cases(dev) -> None:
             _, rel = rel_err(got, want)
             expect(rel <= KERNEL_RTOL,
                    f"gram_block {m_r}x{k_r} by {m_c}x{k_c} dup={dup}: rel {rel:.2e}")
+            expect(torch.equal(got, ops.gram_block_raw(t(vr), t(cr), t(vc), t(cc))),
+                   f"gram_block {m_r}x{k_r} by {m_c}x{k_c}: two calls differ")
             cases += 1
     empty = ops.gram_block_raw(t(vr[:0]), t(cr[:0]), t(vc), t(cc))
     expect(tuple(empty.shape) == (0, m_c), "gram_block empty M_r")
+    # A side of 1 100 000 rows at K = 4, as rows and as columns.
+    vr, cr = map(t, _gram_payload(rng, 40, 4, 50_000, True, 0.3))
+    vc, cc = map(t, _gram_payload(rng, 1_100_000, 4, 50_000, True, 0.3))
+    got = ops.gram_block_raw(vr, cr, vc, cc)
+    _, rel = rel_err(got, ref.gram_block_ref(vr, cr, vc, cc))
+    _, rel_t = rel_err(ops.gram_block_raw(vc, cc, vr, cr), got.T)
+    expect(max(rel, rel_t) <= KERNEL_RTOL,
+           f"gram_block with a side of 1 100 000 rows: rel {rel:.2e} / {rel_t:.2e}")
+    cases += 2
     print(f"[parity] gram_block matches its plain version within {KERNEL_RTOL:g} "
-          f"of scale in {cases} cases (ragged, duplicates, zero slots, "
-          f"M_r = 1, K_r != K_c, every main-path shape)")
+          f"of scale, and repeats bit for bit, in {cases} cases (ragged, "
+          f"duplicates, zero slots, M_r = 1, K_r != K_c, every main-path shape, "
+          f"a side of 1 100 000 rows)")
 
     def grads(fn, args, diff, g):
         ts = list(args)
@@ -1931,6 +2002,48 @@ def bound(bytes_moved: float, flops: float,
     return (tb, "bytes") if tb >= tf else (tf, "operations")
 
 
+def column_index_timed(trace, n: int, label: str):
+    """The trace's column index for the fused K̂ kernel; its build time (host
+    clock ending in a synchronize, median of 5 builds) and size printed."""
+    import torch
+
+    from repro_torch.kernels.ell_spmv import index as kindex
+
+    walls = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        kindex.column_index(trace.cols, trace.loads, n)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    idx = trace.column_index(n)
+    print(f"[timing] khat_fused column index of [{trace.cols.shape[0]}, "
+          f"{trace.cols.shape[1]}] ({label}): build {np.median(walls):.4f} ms "
+          f"(median of 5), U = {idx.n_uniq} distinct columns of "
+          f"{idx.order.shape[0]} non-zero slots, N = {n}")
+    return idx
+
+
+def device_kernels(fn, dev, reps: int = 10) -> list[str]:
+    """Names of the device activities (kernels, memsets, copies) of ``reps``
+    profiled calls of ``fn``, in order of first appearance (a window of one
+    short call can come back from the profiler empty)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            sync(dev)
+    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
+    expect(bool(names), "the profiler saw no device activity")
+    return list(dict.fromkeys(names))
+
+
 def csr(vals, cols, n_cols: int, transpose: bool = False):
     """The ELL payload as a torch CSR matrix (the library yardstick only)."""
     import torch
@@ -1951,7 +2064,7 @@ def csr(vals, cols, n_cols: int, transpose: bool = False):
 def phase_timing(dev, results: dict) -> list[dict]:
     import torch
 
-    from repro_torch.core import features, walks
+    from repro_torch.core import features, linops, walks
     from repro_torch.kernels.ell_spmv import ops as eops
     from repro_torch.kernels.ell_spmv import ref as eref
     from repro_torch.kernels.walk_sampler import ops as wops
@@ -2035,54 +2148,86 @@ def phase_timing(dev, results: dict) -> list[dict]:
         bound(t * k * 8 + t * s * 4 + n * s * 4, 2 * nnz_x * s),
         cuda_ms(lambda: torch.sparse.mm(ax_t, alpha), 20))
 
-    # 4a. Fused K̂_{·x} α over all N rows (pathwise_samples' cross term).
-    got = eops.khat_fused(vals, cols, vals_x, cols_x, alpha, n)
+    # 4a. Fused K̂_{·x} α over all N rows (pathwise_samples' cross term),
+    # through the training trace's column index, as the path calls it.  The
+    # bound counts what these inputs need: the row payload's columns, the
+    # values of the slots on touched columns, Φ_x once, α and y.
+    idx_x = column_index_timed(tx, n, "cross form and posterior CG shape")
+    kern = lambda: eops.khat_fused_raw(vals, cols, vals_x, cols_x, alpha, n, idx_x)  # noqa: E731
+    got = kern()
     err, rel = rel_err(got, eref.khat_matvec_ref(vals, cols, vals_x, cols_x, alpha, n))
     expect(rel <= KERNEL_RTOL, f"khat_fused at the main-path shape: rel {rel:.2e}")
-    row("khat_fused",
-        cuda_ms(lambda: eops.khat_fused(vals, cols, vals_x, cols_x, alpha, n), 20),
+    expect(torch.equal(got, kern()), "khat_fused cross form: two calls differ")
+    hit = idx_x.node_map[cols.long()] >= 0
+    nnz_hit = int((hit & (vals != 0)).sum())
+    ms, eager = graph_ms(kern, 20), cuda_ms(kern, 20)
+    print(f"[timing] khat_fused cross form [{n},{k}] x [{t},{k}] R={s}: graph "
+          f"{ms:.4f} ms, eager loop {eager:.4f} ms; {100 * float(hit.float().mean()):.2f}% "
+          f"of row slots on touched columns")
+    row("khat_fused", ms,
         cuda_ms(lambda: eref.khat_matvec_ref(vals, cols, vals_x, cols_x, alpha, n), 3),
         (err, rel),
-        bound(n * k * 8 + t * k * 8 + t * s * 4 + n * s * 4,
-              2 * (nnz + nnz_x) * s),
+        bound(n * k * 4 + nnz_hit * 4 + t * k * 8 + t * s * 4 + n * s * 4,
+              2 * (nnz_hit + nnz_x) * s),
         cuda_ms(lambda: torch.sparse.mm(a_csr, torch.sparse.mm(ax_t, alpha)), 10))
+    del hit
 
     # 4b. The same kernel at the CG shape (square K̂_xx, R = 16), f32 and bf16.
+    khat_shapes = []
     for dt in (torch.float32, torch.bfloat16):
         vx = vals_x.to(dt)
-        got = eops.khat_fused(vx, cols_x, vx, cols_x, alpha, n)
+        kern = lambda: eops.khat_fused_raw(vx, cols_x, vx, cols_x, alpha, n, idx_x)  # noqa: E731
+        got = kern()
         err, rel = rel_err(got, eref.khat_matvec_ref(vx, cols_x, vx, cols_x, alpha, n))
         expect(rel <= KERNEL_RTOL,
                f"khat_fused at the CG shape ({dt}): rel {rel:.2e}")
-        ms = cuda_ms(lambda: eops.khat_fused(vx, cols_x, vx, cols_x, alpha, n), 100)
+        expect(torch.equal(got, kern()), f"khat_fused CG shape ({dt}): two calls differ")
+        ms, eager = graph_ms(kern, 200), cuda_ms(kern, 100)
         pms = cuda_ms(lambda: eref.khat_matvec_ref(vx, cols_x, vx, cols_x, alpha, n), 20)
         # Square K̂_xx: rows and cols are one payload, read once.
         b = bound(t * k * (vx.element_size() + 4) + 2 * t * s * 4,
                   4 * nnz_x * s)
-        zero_ms = cuda_ms(lambda: torch.zeros((n, s), device=dev), 100)
         print(f"[timing] khat_fused at the CG shape (T={t}, R={s}, {dt}): kernel "
-              f"{ms:.4f} ms, plain {pms:.4f} ms, bound {b[0] * 1e3:.3f} us "
-              f"({b[1]}), zeroing [N,{s}] f32 alone {zero_ms:.4f} ms, "
-              f"max_abs_err {err:.3e} (rel {rel:.2e})")
+              f"{ms:.4f} ms (graph; eager loop {eager:.4f} ms), plain {pms:.4f} ms, "
+              f"bound {b[0] * 1e3:.3f} us ({b[1]}), max_abs_err {err:.3e} "
+              f"(rel {rel:.2e})")
+        khat_shapes.append(dict(shape=[t, k, t, k, s], dtype=str(dt), ms=ms,
+                                eager_ms=eager, plain_ms=pms, bound_ms=b[0],
+                                bound_by=b[1], max_abs_err=err))
+    # One CG iteration's operator product H p = K̂_xx p + σ²p: its device
+    # work must hold nothing N-long (no fill or memset).
+    h = linops.shifted(tx, f, MAIN["sigma_n2"], n)
+    names = device_kernels(lambda: h.matvec(alpha), dev)
+    fills = [x for x in names if "fill" in x.lower() or "memset" in x.lower()]
+    expect(not fills, f"one CG iteration's H p fills memory: {fills}")
+    print(f"[timing] one CG iteration's H p at T={t}, R={s}: device kernels "
+          + "; ".join(names) + " (no fill, no memset)")
     # The library yardstick at the CG shape: the composed torch.sparse.mm
     # pair Φ_x(Φ_xᵀ α), timed as in 4a.
     ax = csr(vals_x, cols_x, n)
     lib = cuda_ms(lambda: torch.sparse.mm(ax, torch.sparse.mm(ax_t, alpha)), 20)
     print(f"[timing] khat_fused at the CG shape (T={t}, R={s}): library "
           f"(composed torch.sparse.mm pair) {lib:.4f} ms")
+    for x in khat_shapes:
+        x["library_ms"] = lib
     del w, vals, cols, a_csr, trace
     torch.cuda.empty_cache()
     timing_fit(dev, results["fit"], n)
-    rows.append(timing_gram(dev, results["serving"], counts["gram_block"]))
-    rows.append(timing_woodbury(dev, results["solvers"], counts["woodbury_apply"]))
+    rows.append(timing_gram(dev, results["serving"], results["solvers"],
+                            counts["gram_block"]))
+    wood, solvers_cg = timing_woodbury(dev, results["solvers"],
+                                       counts["woodbury_apply"])
+    rows.append(wood)
+    khat_row = next(x for x in rows if x["name"] == "khat_fused")
+    khat_row["shapes"] = khat_shapes + [solvers_cg]
     rows.append(timing_flash(dev, counts["flash_attention"]))
     rows.append(timing_rmsnorm(dev, counts["rmsnorm"]))
     return rows
 
 
 def timing_fit(dev, fit: dict, n: int) -> None:
-    """The K̂ backward at the fit's shape, and the share of a fit step that
-    the fused kernel spends zeroing its N·R intermediate."""
+    """The K̂ backward at the fit's shape, and the fused kernel at the fit's
+    CG width."""
     import torch
 
     from repro_torch.core import features
@@ -2119,19 +2264,14 @@ def timing_fit(dev, fit: dict, n: int) -> None:
           f"plain {cuda_ms(plain, 10):.4f} ms, bound {b[0]:.4f} ms ({b[1]}), "
           f"max_abs_err {err:.3e} (rel {rel:.2e})")
     profile_busy("K̂ backward at the fit shape", kern, dev, kern_ms / 1e3)
-    zero = {w: cuda_ms(lambda w=w: torch.zeros((n * w,), device=dev), 100)
-            for w in (1, r, r + 1)}
+    # The fit's CG solves at R = 1 + probes, through the trace's index.
     v9 = torch.cat([torch.ones_like(probes[:, :1]), probes], dim=1).contiguous()
-    k9 = cuda_ms(lambda: eops.khat_fused_raw(vals, cols, vals, cols, v9, n), 100)
-    it = fit["cg_iters"]
-    # One warm step: it CG iterations + the warm-start residual at R = 9, and
-    # the surrogate's two matvecs at R = 1 and R = 8.
-    zero_step = (it + 1) * zero[r + 1] + zero[1] + zero[r]
-    print(f"[timing] fit step zeroing: khat_fused at the CG shape (R={r + 1}) "
-          f"{k9:.4f} ms, of which zeroing [N,{r + 1}] f32 {zero[r + 1]:.4f} ms; "
-          f"per warm step ({it} CG iterations) zeroing ~{zero_step:.4f} ms of "
-          f"{fit['warm_step_s'] * 1e3:.3f} ms "
-          f"({100 * zero_step / (fit['warm_step_s'] * 1e3):.1f}%)")
+    idx = tx.column_index(n)
+    k9 = lambda: eops.khat_fused_raw(vals, cols, vals, cols, v9, n, idx)  # noqa: E731
+    print(f"[timing] khat_fused at the fit's CG shape (T={t_x}, R={r + 1}): "
+          f"{graph_ms(k9, 200):.4f} ms (graph; eager loop {cuda_ms(k9, 100):.4f} "
+          f"ms); warm fit step {fit['warm_step_s'] * 1e3:.3f} ms "
+          f"({fit['cg_iters']} CG iterations)")
 
 
 def matching_pairs(vals_r, cols_r, vals_c, cols_c, n: int) -> int:
@@ -2145,8 +2285,10 @@ def matching_pairs(vals_r, cols_r, vals_c, cols_c, n: int) -> int:
     return int((per_col(vals_r, cols_r) * per_col(vals_c, cols_c)).sum())
 
 
-def timing_gram(dev, serving_out: dict, launches: int) -> dict:
-    """gram_block at each main-path shape with the serving phase's payloads."""
+def timing_gram(dev, serving_out: dict, solv: dict, launches: int) -> dict:
+    """gram_block at each main-path shape with the serving phase's payloads
+    and, for the Nyström pivot column, the solvers phase's training block
+    against its first pivot; two calls bit-equal at each."""
     import torch
 
     from repro_torch.core import features
@@ -2158,11 +2300,13 @@ def timing_gram(dev, serving_out: dict, launches: int) -> dict:
     cols_c = st.trace.cols.contiguous()
     n = st.n_nodes
     rng = np.random.default_rng(8)
-    rows_of = {}
-    for m in sorted({sh[0] for sh in GRAM_SHAPES}):
-        if m == SERVE["capacity"]:
-            rows_of[m] = (vals_c, cols_c)
-            continue
+    block_v = features.feature_values(solv["trace_x"], solv["f"]).contiguous()
+    block_c = solv["trace_x"].cols.contiguous()
+    pivot = solv["precond"].pivots[:1].long()
+    rows_of = {SERVE["capacity"]: (vals_c, cols_c), block_v.shape[0]: (block_v, block_c),
+               -1: (block_v.index_select(0, pivot).contiguous(),
+                    block_c.index_select(0, pivot).contiguous())}
+    for m in sorted({sh[0] for sh in GRAM_SHAPES} - set(rows_of)):
         tq = sstate.query_rows(st, torch.from_numpy(
             rng.choice(n, m, replace=False).astype(np.int32)).to(dev))
         rows_of[m] = (features.feature_values(tq, st.f).contiguous(),
@@ -2170,13 +2314,15 @@ def timing_gram(dev, serving_out: dict, launches: int) -> dict:
     shapes = []
     for (m_r, k_r, m_c, k_c) in GRAM_SHAPES:
         vr, cr = rows_of[m_r]
-        vc, cc = (vals_c, cols_c) if m_c == SERVE["capacity"] else rows_of[m_c]
-        got = ops.gram_block_raw(vr, cr, vc, cc)
+        vc, cc = rows_of[-1 if m_r == block_v.shape[0] else m_c]
+        kern = lambda: ops.gram_block_raw(vr, cr, vc, cc)   # noqa: E731
+        got = kern()
         errs = rel_err(got, ref.gram_block_ref(vr, cr, vc, cc))
         expect(errs[1] <= KERNEL_RTOL,
                f"gram_block at [{m_r},{k_r}]x[{m_c},{k_c}]: rel {errs[1]:.2e}")
-        reps = 100 if m_r * m_c <= 64 * 128 else 20
-        ms = cuda_ms(lambda: ops.gram_block_raw(vr, cr, vc, cc), reps)
+        expect(torch.equal(got, kern()),
+               f"gram_block at [{m_r},{k_r}]x[{m_c},{k_c}]: two calls differ")
+        ms, eager = graph_ms(kern, 100), cuda_ms(kern, 100)
         pms = cuda_ms(lambda: ref.gram_block_ref(vr, cr, vc, cc),
                       20 if m_r * m_c <= 64 * 128 else 2, warmup=1)
         a_r, a_ct = csr(vr, cr, n), csr(vc, cc, n, transpose=True)
@@ -2187,20 +2333,23 @@ def timing_gram(dev, serving_out: dict, launches: int) -> dict:
         # (2 float32 operations) per pair of non-zero slots whose columns
         # match: what G = Φ_r Φ_cᵀ needs on these inputs.
         b = bound((m_r * k_r + m_c * k_c) * 8 + m_r * m_c * 4, 2 * pairs)
-        # The kernel's own design compares every pair of slots: its work,
-        # printed beside the bound, not used for it.
-        design = bound(0, 2 * m_r * m_c * k_r * k_c)[0]
+        # The design's probes: one per (hashed row, distinct entry of a
+        # probe row), the hashed side being the one with fewer rows.
+        distinct = [float(ref.aggregate_rows_ref(v_, c_)[2].float().mean())
+                    for v_, c_ in ((vr, cr), (vc, cc))]
+        probes = m_r * m_c * (distinct[0] if m_c <= m_r else distinct[1])
         print(f"[timing] gram_block [{m_r},{k_r}]x[{m_c},{k_c}] (nnz {nnz_r} x "
-              f"{nnz_c}, matching pairs {pairs}): kernel {ms:.4f} ms, plain "
-              f"{pms:.4f} ms, bound {b[0]:.6f} ms ({b[1]}; design work of "
-              f"{m_r * m_c * k_r * k_c} slot compares {design:.4f} ms), library "
-              f"(torch.sparse.mm CSR x CSR) {lib:.4f} ms, max_abs_err "
-              f"{errs[0]:.3e} (rel {errs[1]:.2e})")
-        shapes.append(dict(shape=[m_r, k_r, m_c, k_c], ms=ms, plain_ms=pms,
-                           bound_ms=b[0], bound_by=b[1], library_ms=lib,
-                           max_abs_err=errs[0], matching_pairs=pairs,
-                           design_ops_ms=design))
-    head = shapes[-1]   # the Thompson q×q Gram, the largest main-path call
+              f"{nnz_c}, distinct per row {distinct[0]:.1f} x {distinct[1]:.1f}, "
+              f"matching pairs {pairs}, probes {probes:.0f}): kernel {ms:.4f} ms "
+              f"(graph; eager loop {eager:.4f} ms), plain {pms:.4f} ms, bound "
+              f"{b[0]:.6f} ms ({b[1]}), library (torch.sparse.mm CSR x CSR, "
+              f"eager loop) {lib:.4f} ms, max_abs_err {errs[0]:.3e} "
+              f"(rel {errs[1]:.2e})")
+        shapes.append(dict(shape=[m_r, k_r, m_c, k_c], ms=ms, eager_ms=eager,
+                           plain_ms=pms, bound_ms=b[0], bound_by=b[1],
+                           library_ms=lib, max_abs_err=errs[0],
+                           matching_pairs=pairs, distinct_per_row=distinct))
+    head = next(x for x in shapes if x["shape"] == [512, 144, 512, 144])
     return dict(name="gram_block", route="cuda",
                 source="src/repro_torch/kernels/csrc/gram_block.cu",
                 replaces=REPLACES["gram_block"], launches=launches,
@@ -2210,7 +2359,7 @@ def timing_gram(dev, serving_out: dict, launches: int) -> dict:
                 library_ms=head["library_ms"], shapes=shapes)
 
 
-def timing_woodbury(dev, solv: dict, launches: int) -> dict:
+def timing_woodbury(dev, solv: dict, launches: int) -> tuple[dict, dict]:
     """woodbury_apply at T = 4000 for r in WOOD_RANKS and R in WOOD_COLS, on
     the solvers phase's Nyström operands (r = 128 is the phase's; 64 and 256
     are built on the same H), and the fused K̂ kernel at the solvers phase's CG
@@ -2249,15 +2398,20 @@ def timing_woodbury(dev, solv: dict, launches: int) -> dict:
             shapes.append(dict(shape=[t, r, cols], ms=ms, plain_ms=pms,
                                bound_ms=bd[0], bound_by=bd[1],
                                max_abs_err=errs[0]))
-    # The fused K̂ kernel at the solvers phase's CG shape (K = 144, R = 1).
+    # The fused K̂ kernel at the solvers phase's CG shape (K = 144, R = 1),
+    # through the training trace's column index, and that CG iteration's
+    # operator product, whose device work must hold nothing N-long.
     tx, f = solv["trace_x"], solv["f"]
     vals = features.feature_values(tx, f).contiguous()
     cols_x = tx.cols.contiguous()
     n = SOLVE["n_nodes"]
+    idx = column_index_timed(tx, n, "solvers CG shape")
     p = torch.randn((t,), generator=gen, device=dev)
-    err, rel = rel_err(eops.khat_fused(vals, cols_x, vals, cols_x, p, n),
-                       eref.khat_matvec_ref(vals, cols_x, vals, cols_x, p, n))
+    kern = lambda: eops.khat_fused_raw(vals, cols_x, vals, cols_x, p, n, idx)  # noqa: E731
+    got = kern()
+    err, rel = rel_err(got, eref.khat_matvec_ref(vals, cols_x, vals, cols_x, p, n))
     expect(rel <= KERNEL_RTOL, f"khat_fused at the solvers CG shape: rel {rel:.2e}")
+    expect(torch.equal(got, kern()), "khat_fused solvers CG shape: two calls differ")
     nnz = int((vals != 0).sum())
     kb = bound(t * vals.shape[1] * 8 + 2 * t * 4, 4 * nnz)
     # The library yardstick: the composed torch.sparse.mm pair Φ_x(Φ_xᵀ p) on
@@ -2265,12 +2419,22 @@ def timing_woodbury(dev, solv: dict, launches: int) -> dict:
     ax, ax_t = csr(vals, cols_x, n), csr(vals, cols_x, n, transpose=True)
     p2 = p[:, None]
     lib = cuda_ms(lambda: torch.sparse.mm(ax, torch.sparse.mm(ax_t, p2)), 50)
+    ms, eager = graph_ms(kern, 200), cuda_ms(kern, 200)
+    pms = cuda_ms(lambda: eref.khat_matvec_ref(vals, cols_x, vals, cols_x, p, n), 50)
     print(f"[timing] khat_fused at the solvers CG shape ([{t}, {vals.shape[1]}], "
-          f"R=1, N={n}): kernel "
-          f"{cuda_ms(lambda: eops.khat_fused(vals, cols_x, vals, cols_x, p, n), 200):.4f} ms, "
-          f"plain {cuda_ms(lambda: eref.khat_matvec_ref(vals, cols_x, vals, cols_x, p, n), 50):.4f} ms, "
-          f"bound {kb[0] * 1e3:.3f} us ({kb[1]}), library (composed torch.sparse.mm "
-          f"pair) {lib:.4f} ms, max_abs_err {err:.3e} (rel {rel:.2e})")
+          f"R=1, N={n}): kernel {ms:.4f} ms (graph; eager loop {eager:.4f} ms), "
+          f"plain {pms:.4f} ms, bound {kb[0] * 1e3:.3f} us ({kb[1]}), library "
+          f"(composed torch.sparse.mm pair) {lib:.4f} ms, max_abs_err {err:.3e} "
+          f"(rel {rel:.2e})")
+    names = device_kernels(lambda: solv["h"].matvec(p), dev)
+    fills = [x for x in names if "fill" in x.lower() or "memset" in x.lower()]
+    expect(not fills, f"one solvers CG iteration's H p fills memory: {fills}")
+    print(f"[timing] one CG iteration's H p at the solvers CG shape: device "
+          "kernels " + "; ".join(names) + " (no fill, no memset)")
+    solvers_cg = dict(shape=[t, vals.shape[1], t, vals.shape[1], 1],
+                      dtype="torch.float32", ms=ms, eager_ms=eager, plain_ms=pms,
+                      bound_ms=kb[0], bound_by=kb[1], library_ms=lib,
+                      max_abs_err=err)
     head = next(x for x in shapes if x["shape"] == [t, SOLVE["rank"], 1])
     return dict(name="woodbury_apply", route="cuda",
                 source="src/repro_torch/kernels/csrc/woodbury_apply.cu",
@@ -2278,7 +2442,7 @@ def timing_woodbury(dev, solv: dict, launches: int) -> dict:
                 max_abs_err=max(x["max_abs_err"] for x in shapes),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                library_ms=None, shapes=shapes)
+                library_ms=None, shapes=shapes), solvers_cg
 
 
 def window_pairs(s: int, w: int) -> int:

@@ -50,8 +50,9 @@ def phi_t_matvec(
 def khat_matvec(trace: WalkTrace, f: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """y = K̂ v = Φ (Φᵀ v) for square Φ (M == N)."""
     vals = feature_values(trace, f)
-    return dispatch.khat_matvec(vals, trace.cols, vals, trace.cols, v,
-                                trace.n_nodes)
+    n = trace.n_nodes
+    return dispatch.khat_matvec(vals, trace.cols, vals, trace.cols, v, n,
+                                trace.column_index(n))
 
 
 def khat_cross_matvec(
@@ -62,7 +63,7 @@ def khat_cross_matvec(
     return dispatch.khat_matvec(
         feature_values(trace_rows, f), trace_rows.cols,
         feature_values(trace_cols, f), trace_cols.cols,
-        v, n_nodes,
+        v, n_nodes, trace_cols.column_index(n_nodes),
     )
 
 

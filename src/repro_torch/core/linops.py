@@ -167,7 +167,7 @@ class KhatOperator:
             return dispatch.khat_matvec(
                 self.rows.vals(), self.rows.trace.cols,
                 self.cols.vals(), self.cols.trace.cols,
-                v, self.n_nodes,
+                v, self.n_nodes, self.cols.trace.column_index(self.n_nodes),
             )
         u = self.cols.rmatvec(v)
         if self.reduce is not None:

@@ -20,6 +20,7 @@ import torch
 
 from ..graphs.formats import Graph
 from ..kernels import dispatch
+from ..kernels.ell_spmv.index import ColumnIndex, column_index
 from ..kernels.walk_sampler.rng import SCHEMES
 
 DEFAULT_CHUNK = 65536
@@ -49,6 +50,22 @@ class WalkTrace:
     @property
     def slots(self) -> int:
         return self.cols.shape[1]
+
+    def column_index(self, n_nodes: int) -> ColumnIndex:
+        """The fused K̂ kernel's index of this trace's non-zero slots over
+        ``n_nodes`` graph nodes (kernels/ell_spmv/index.py), built on first
+        use and kept on the trace: it depends on ``cols`` and on which
+        ``loads`` are 0, not on the modulation, so every product with this
+        trace — every CG iteration, fit step and later call — reads the same
+        one.  The port never writes a trace's tensors in place (serving
+        builds new ones), yet the key holds the tensors' versions too, so an
+        in-place write rebuilds the index instead of reading a stale one."""
+        key = (n_nodes, self.cols._version, self.loads._version)
+        kept = self.__dict__.get("_column_index")
+        if kept is None or kept[0] != key:
+            kept = (key, column_index(self.cols, self.loads, n_nodes))
+            object.__setattr__(self, "_column_index", kept)
+        return kept[1]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,19 +1,24 @@
-from . import mll, posterior, variational  # noqa: F401
+from . import cg, mll, posterior, variational  # noqa: F401
+from ..solvers import (  # noqa: F401  (the Krylov strategy layer)
+    SolveStrategy,
+    cg_solve_fixed,
+    slq_logdet,
+    solve,
+)
+from .cg import CGResult, cg_solve  # noqa: F401  (deprecation shim)
 from .mll import (  # noqa: F401
-    FitResult,
     exact_lml,
     fit_hyperparams,
     init_hyperparams,
     make_h_matvec,
     make_h_operator,
-    mll_surrogate_loss,
     noise_var,
 )
 from .posterior import (  # noqa: F401
     gaussian_nlpd,
     pathwise_samples,
-    pathwise_samples_chunked,
     posterior_mean,
+    posterior_moments,
     predictive_moments_from_samples,
     rmse,
 )

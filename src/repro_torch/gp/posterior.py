@@ -15,8 +15,8 @@ on the operator it is handed.
 The public sampling functions draw the prior weights ``w`` [N, S] and the
 unit-normal noise ``eps`` [T, S] from a ``torch.Generator`` (w first) and
 hand them to an inner function that takes them as arguments; the JAX
-package draws both inside its jit.  ``serving``'s closed-form
-``posterior_moments`` comes with the serving slice.
+package draws both inside its jit.  :func:`posterior_moments` is the
+closed-form Eq. 3/4 of a serving state (``serving/state.py``).
 """
 from __future__ import annotations
 
@@ -200,6 +200,20 @@ def _pathwise_samples_chunked(graph, train_nodes, f, sigma_n2, y, w, eps,
 def predictive_moments_from_samples(samples: torch.Tensor):
     """Ensemble mean/variance over pathwise samples → scalable Eq. 3/4 proxy."""
     return torch.mean(samples, dim=1), torch.var(samples, dim=1, correction=0)
+
+
+def posterior_moments(state, query_nodes):
+    """*Exact* closed-form Eq. 3/4 from a serving state's cached Cholesky.
+
+    The no-CG counterpart of :func:`predictive_moments_from_samples`: the
+    GP's exact predictive mean and variance under the GRF estimator,
+    μ = K̂_{q,x}(K̂_xx+σ²I)⁻¹y and σ² = K̂_qq − K̂_{q,x}(K̂_xx+σ²I)⁻¹K̂_{x,q},
+    in O(q·m²) via two triangular solves (``repro_torch.serving.state``).
+    ``state`` is a :class:`repro_torch.serving.ServeState`.  Returns
+    (mean[q], var[q])."""
+    from ..serving import state as serving_state
+
+    return serving_state.posterior_moments(state, query_nodes)
 
 
 def gaussian_nlpd(y: torch.Tensor, mean: torch.Tensor,

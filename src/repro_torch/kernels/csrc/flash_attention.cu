@@ -119,16 +119,18 @@ struct Strides {
 template <typename T, int NC, int RPT>
 __global__ void __launch_bounds__(THREADS)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
-              const T* __restrict__ v, T* __restrict__ o, int h, int hkv,
-              int sq, int skv, int d, Strides st, int causal, int window,
-              float softcap, float sm_scale) {
+              const T* __restrict__ v, T* __restrict__ o, int nbh, int h,
+              int hkv, int sq, int skv, int d, Strides st, int causal,
+              int window, float softcap, float sm_scale) {
   constexpr int DP = 16 * NC;
   constexpr int BQ = GROUPS * RPT;
   extern __shared__ float4 smem4[];
   float* ks = reinterpret_cast<float*>(smem4);
   float* vs = ks + BK * DP;
 
-  const int bh = blockIdx.y;
+  // (batch, head) folded over grid.y and grid.z: B·H may pass 65535.
+  const int bh = blockIdx.y + blockIdx.z * gridDim.y;
+  if (bh >= nbh) return;
   const int b = bh / h;
   const int hq = bh - b * h;
   const int hk = hq / (h / hkv);
@@ -301,10 +303,13 @@ static int launch_nc(const void* q, const void* k, const void* v, void* o,
   const int smem = 2 * BK * 16 * NC * (int)sizeof(float);
   cudaError_t err = set_smem_once<flash_fwd<T, NC, RPT>>(smem);
   if (err != cudaSuccess) return (int)err;
-  const dim3 grid((unsigned int)((sq + BQ - 1) / BQ), (unsigned int)(b * h));
+  const int nbh = b * h;
+  const int gy = nbh < 65535 ? nbh : 65535;
+  const dim3 grid((unsigned int)((sq + BQ - 1) / BQ), (unsigned int)gy,
+                  (unsigned int)((nbh + gy - 1) / gy));
   flash_fwd<T, NC, RPT><<<grid, THREADS, smem, stream>>>(
-      (const T*)q, (const T*)k, (const T*)v, (T*)o, h, hkv, sq, skv, d, st,
-      causal, window, softcap, sm_scale);
+      (const T*)q, (const T*)k, (const T*)v, (T*)o, nbh, h, hkv, sq, skv, d,
+      st, causal, window, softcap, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -1047,7 +1052,7 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
                            float sm_scale, int bf16, void* stream) {
   if (b == 0 || h == 0 || sq == 0) return (int)cudaSuccess;
   if (b < 0 || h < 1 || hkv < 1 || h % hkv != 0 || sq < 0 || skv < 0 ||
-      d < 1 || d > 16 * MAX_NC || (long long)b * h > 65535)
+      d < 1 || d > 16 * MAX_NC || (long long)b * h > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const Strides st{qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
   const int nc = (d + 15) / 16;

@@ -47,15 +47,20 @@ def phi_t_matvec(vals, cols, v, n_nodes: int):
                               v.to(torch.float32).contiguous(), n_nodes)
 
 
-def khat_matvec(vals_rows, cols_rows, vals_cols, cols_cols, v, n_nodes: int):
-    """y = Φ_rows (Φ_colsᵀ v) — the fused K̂ matvec (f32 or bf16 payloads)."""
+def khat_matvec(vals_rows, cols_rows, vals_cols, cols_cols, v, n_nodes: int,
+                index=None):
+    """y = Φ_rows (Φ_colsᵀ v) — the fused K̂ matvec (f32 or bf16 payloads).
+
+    ``index``: the column payload's column index
+    (``WalkTrace.column_index``), built by the kernel's wrapper where not
+    given."""
     def payload(a):
         return a.contiguous() if a.dtype == torch.bfloat16 else _f32(a)
 
     return ell_ops.khat_fused(
         payload(vals_rows), cols_rows.contiguous(),
         payload(vals_cols), cols_cols.contiguous(),
-        v.to(torch.float32).contiguous(), n_nodes,
+        v.to(torch.float32).contiguous(), n_nodes, index,
     )
 
 

@@ -25,6 +25,7 @@ import ctypes
 import torch
 
 from .. import build
+from .index import ColumnIndex, column_index
 from .ref import ell_spmv_ref, ell_spmv_t_ref, khat_matvec_ref
 
 # Kernel launches since the last reset (chip_smoke.py reads it).
@@ -35,10 +36,7 @@ _PAYLOAD = (torch.float32, torch.bfloat16)
 _I32 = (torch.int32,)
 _VP = ctypes.c_void_p
 _SPMV_ARGS = [_VP] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP]
-_KHAT_ARGS = [_VP] * 7 + [
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong, ctypes.c_int,
-    ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP,
-]
+_KHAT_ARGS = [_VP] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_VP]
 
 
 def _check_payload(name, vals, cols, dtypes):
@@ -95,36 +93,49 @@ def ell_spmv_t_raw(vals: torch.Tensor, cols: torch.Tensor, v: torch.Tensor,
 
 def khat_fused_raw(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
                    vals_cols: torch.Tensor, cols_cols: torch.Tensor,
-                   v: torch.Tensor, n_nodes: int) -> torch.Tensor:
-    """y = Φ_rows (Φ_colsᵀ v) in one launch; payloads f32 or bf16.
+                   v: torch.Tensor, n_nodes: int,
+                   index: ColumnIndex | None = None) -> torch.Tensor:
+    """y = Φ_rows (Φ_colsᵀ v); payloads f32 or bf16, each side its own.
 
     vals_rows [M_r, K_r], vals_cols [M_c, K_c], v f32[M_c(, R)] →
-    f32[M_r(, R)].  The N(·R)-float intermediate is a scratch buffer the
-    kernel zeroes itself."""
+    f32[M_r(, R)].  ``index`` is the column index of the column payload
+    (``column_index(cols_cols, ·, n_nodes)``, index.py), which a caller
+    keeps for every product with the same columns; without one it is built
+    here, which gives the same result, only slower.  A bf16 payload beside
+    an f32 one is upcast (exactly) and the f32 instance runs."""
     name = "khat_fused"
     if not build.on_cuda(name, vals_rows, cols_rows, vals_cols, cols_cols, v):
         return khat_matvec_ref(vals_rows, cols_rows, vals_cols, cols_cols, v,
                                n_nodes)
     _check_payload(name, vals_rows, cols_rows, _PAYLOAD)
     _check_payload(name, vals_cols, cols_cols, _PAYLOAD)
-    if vals_rows.dtype != vals_cols.dtype:
-        raise TypeError(f"{name}: row payload {vals_rows.dtype} and column "
-                        f"payload {vals_cols.dtype} differ")
     build.check(name, v, "v", _F32, (1, 2))
     m_r, k_r = vals_rows.shape
     m_c, k_c = vals_cols.shape
     if v.shape[0] != m_c:
         raise ValueError(f"{name}: v has {v.shape[0]} rows, column payload {m_c}")
+    if vals_rows.dtype != vals_cols.dtype:
+        vals_rows, vals_cols = _f32c(vals_rows), _f32c(vals_cols)
     dev = v.device
+    if index is None:
+        index = column_index(cols_cols, vals_cols, n_nodes)
+    elif (index.shape != (m_c, k_c) or index.n_nodes != n_nodes
+          or index.node_map.device != dev):
+        raise ValueError(f"{name}: index of a {index.shape} payload over "
+                         f"{index.n_nodes} nodes on {index.node_map.device}, "
+                         f"not {(m_c, k_c)} over {n_nodes} on {dev}")
     r = _width(v)
-    u = torch.empty((n_nodes * r,), dtype=torch.float32, device=dev)
+    u = torch.empty((index.n_uniq * r,), dtype=torch.float32, device=dev)
     y = torch.empty((m_r,) + tuple(v.shape[1:]), dtype=torch.float32,
                     device=dev)
+    if r == 0:
+        return y
     fn = build.bind(name, "khat_fused_launch", _KHAT_ARGS)
     with build.device(dev):
         fn(build.ptr(vals_rows), build.ptr(cols_rows), build.ptr(vals_cols),
-           build.ptr(cols_cols), build.ptr(v), build.ptr(u), build.ptr(y),
-           m_r, k_r, m_c, k_c, n_nodes, r,
+           build.ptr(index.order), build.ptr(index.seg),
+           build.ptr(index.node_map), build.ptr(v), build.ptr(u), build.ptr(y),
+           m_r, k_r, k_c, index.n_uniq, r,
            int(vals_rows.dtype == torch.bfloat16), build.stream(dev))
     LAUNCHES[name] += 1
     return y
@@ -184,15 +195,17 @@ class _SpmvTFn(torch.autograd.Function):
 
 class _KhatFn(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, vals_g, cols_g, vals_s, cols_s, v, n_nodes):
+    def forward(ctx, vals_g, cols_g, vals_s, cols_s, v, n_nodes, index_s):
         ctx.save_for_backward(vals_g, cols_g, vals_s, cols_s, v)
         ctx.n_nodes = n_nodes
-        return khat_fused_raw(vals_g, cols_g, vals_s, cols_s, v, n_nodes)
+        return khat_fused_raw(vals_g, cols_g, vals_s, cols_s, v, n_nodes,
+                              index_s)
 
     @staticmethod
     def backward(ctx, g):
         # y = Φg u, u = Φsᵀ v.  Cotangents (recomputed with the kernels):
-        #   d_v      = Φs Φgᵀ g             (fused, roles swapped)
+        #   d_v      = Φs Φgᵀ g             (fused, roles swapped, through
+        #                                    an index of Φg built here)
         #   d_vals_g = g ⊙ u[cols_g],  u = Φsᵀ v
         #   d_vals_s = v ⊙ w[cols_s],  w = Φgᵀ g
         vals_g, cols_g, vals_s, cols_s, v = ctx.saved_tensors
@@ -207,7 +220,7 @@ class _KhatFn(torch.autograd.Function):
             d_s = _dvals(v, cols_s, w).to(vals_s.dtype)
         if ctx.needs_input_grad[4]:
             d_v = khat_fused_raw(vals_s, cols_s, vals_g, cols_g, g, n)
-        return d_g, None, d_s, None, d_v, None
+        return d_g, None, d_s, None, d_v, None, None
 
 
 def ell_spmv(vals, cols, u) -> torch.Tensor:
@@ -220,8 +233,9 @@ def ell_spmv_t(vals, cols, v, n_nodes: int) -> torch.Tensor:
     return _SpmvTFn.apply(vals, cols, v, n_nodes)
 
 
-def khat_fused(vals_rows, cols_rows, vals_cols, cols_cols, v,
-               n_nodes: int) -> torch.Tensor:
-    """Differentiable y = Φ_rows (Φ_colsᵀ v) (see :func:`khat_fused_raw`)."""
+def khat_fused(vals_rows, cols_rows, vals_cols, cols_cols, v, n_nodes: int,
+               index: ColumnIndex | None = None) -> torch.Tensor:
+    """Differentiable y = Φ_rows (Φ_colsᵀ v) (see :func:`khat_fused_raw`;
+    ``index`` is the column payload's)."""
     return _KhatFn.apply(vals_rows, cols_rows, vals_cols, cols_cols, v,
-                         n_nodes)
+                         n_nodes, index)

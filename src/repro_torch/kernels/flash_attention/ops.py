@@ -99,8 +99,6 @@ def _check(name, q, k, v):
         raise ValueError(f"{name}: {h} query heads are not a multiple of "
                          f"{k.shape[1]} kv heads")
     route(q.dtype, d, True)   # the head dim is one that an instance takes
-    if b * h > 65535:
-        raise ValueError(f"{name}: B·H = {b * h} exceeds the grid's 65535")
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

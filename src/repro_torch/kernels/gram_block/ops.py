@@ -29,7 +29,7 @@ LAUNCHES = {"gram_block": 0}
 _F32 = (torch.float32,)
 _I32 = (torch.int32,)
 _VP = ctypes.c_void_p
-_ARGS = [_VP] * 5 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
+_ARGS = [_VP] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_int, _VP]
 
 
@@ -55,11 +55,15 @@ def gram_block_raw(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
     out = torch.empty((m_r, m_c), dtype=torch.float32, device=dev)
     if m_r == 0 or m_c == 0:
         return out
+    # The kernel's aggregated rows: columns and sums of both payloads, and
+    # each row's count of distinct entries.
+    scratch = torch.empty((2 * (m_r * k_r + m_c * k_c) + m_r + m_c,),
+                          dtype=torch.int32, device=dev)
     fn = build.bind(name, "gram_block_launch", _ARGS)
     with build.device(dev):
         fn(build.ptr(vals_rows), build.ptr(cols_rows), build.ptr(vals_cols),
-           build.ptr(cols_cols), build.ptr(out), m_r, k_r, m_c, k_c,
-           build.stream(dev))
+           build.ptr(cols_cols), build.ptr(out), build.ptr(scratch), m_r, k_r,
+           m_c, k_c, build.stream(dev))
     LAUNCHES[name] += 1
     return out
 

@@ -70,3 +70,32 @@ def gram_lookup_ref(g_rows: torch.Tensor, vals_cols: torch.Tensor,
     if not out:
         return vals_cols.new_zeros((0, k_r))
     return torch.cat(out)
+
+
+def aggregate_rows_ref(vals: torch.Tensor, cols: torch.Tensor):
+    """Each row's distinct (column, Σ value) entries over its non-zero slots,
+    in order of first occurrence — the CUDA kernel's first step, in plain
+    PyTorch.  vals f32[M, K], cols i32[M, K] → (cols i32[M, K], sums
+    f32[M, K], counts i32[M]); entries past a row's count are column −1 and
+    value 0.  Since G[i, j] = Σ_c A_i(c)·B_j(c) for the aggregated rows A
+    and B, ``gram_block_ref`` of the two aggregated payloads is G."""
+    vals = vals.to(torch.float32)
+    m, k = vals.shape
+    out_c = torch.full((m, k), -1, dtype=torch.int32, device=vals.device)
+    out_v = torch.zeros((m, k), dtype=torch.float32, device=vals.device)
+    counts = torch.zeros((m,), dtype=torch.int32, device=vals.device)
+    step = max(1, _BLOCK_BYTES // max(1, 4 * k * k))
+    slot = torch.arange(k, device=vals.device)
+    for i in range(0, m if k else 0, step):
+        v, c = vals[i:i + step], cols[i:i + step]
+        live = v != 0
+        # same[r, a, b]: slots a and b of row r are live and share a column.
+        same = (c[:, :, None] == c[:, None, :]) & live[:, :, None] & live[:, None, :]
+        first = live & (same.to(torch.int8).argmax(dim=2) == slot)
+        sums = torch.einsum("rab,rb->ra", same.to(vals.dtype), v)
+        at = torch.cumsum(first.to(torch.int64), dim=1) - 1
+        rows = torch.arange(v.shape[0], device=vals.device)[:, None].expand_as(at)
+        out_c[i:i + step][rows[first], at[first]] = c[first].to(torch.int32)
+        out_v[i:i + step][rows[first], at[first]] = sums[first]
+        counts[i:i + step] = first.sum(dim=1).to(torch.int32)
+    return out_c, out_v, counts

@@ -387,3 +387,12 @@ def test_gpu_misaligned_views_take_cuda_cores(cuda):
                    torch.bfloat16)[..., :80] for _ in range(3))
     assert not ops.aligned(*odd)
     _card_case(cuda, (1, 2, 2, 50, 50, 80), dict(window=8), torch.bfloat16, qkv=odd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gpu_batch_heads_past_a_grid_dimension(cuda, dtype):
+    """B·H = 2049·32 = 65568, past a grid dimension's 65535: f32 on the
+    CUDA-core instance (B·H folded over grid.y and grid.z) and bf16 on the
+    tensor cores (a 1-D grid), each against mha_ref."""
+    _card_case(cuda, (2049, 32, 8, 16, 16, 64), {}, getattr(torch, dtype))

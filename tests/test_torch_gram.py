@@ -10,7 +10,7 @@ Tolerances: both sides sum the same float32 products (at most K_r·K_c per
 entry, of unit scale) in another order: 1e-6 of the result's scale for the
 plain versions.  The gradients pass through one more contraction (the
 lookup): 1e-5 of scale.  On the card the kernel's sum order differs again:
-1e-5 of scale.
+1e-5 of scale, and two calls are bit-equal.
 """
 import numpy as np
 import pytest
@@ -142,6 +142,32 @@ def test_gram_autograd_matches_jax_vjp(jx, shape):
     close(d_c, want_c, GRAD_TOL)
 
 
+@pytest.mark.parametrize("shape", SHAPES)
+def test_gram_aggregation_twin_matches_jax(jx, shape):
+    """The kernel's first step in plain PyTorch: each row as its distinct
+    (column, Σ value) entries over the non-zero slots, in order of first
+    occurrence; G from the aggregated rows equals the Pallas kernel's G on
+    the raw payloads."""
+    _, jnp, jgram, _ = jx
+    vr, cr, vc, cc = _case(shape, 13 + sum(shape))
+    want = np.asarray(jgram.gram_block(*map(jnp.asarray, (vr, cr, vc, cc)),
+                                       interpret=True))
+    agg_r = ref.aggregate_rows_ref(torch.from_numpy(vr), torch.from_numpy(cr))
+    agg_c = ref.aggregate_rows_ref(torch.from_numpy(vc), torch.from_numpy(cc))
+    for (ac, av, an), vals, cols in ((agg_r, vr, cr), (agg_c, vc, cc)):
+        for i in range(vals.shape[0]):
+            live = vals[i] != 0
+            firsts = list(dict.fromkeys(cols[i][live].tolist()))
+            n = int(an[i])
+            assert ac[i, :n].tolist() == firsts
+            assert bool((ac[i, n:] == -1).all()) and bool((av[i, n:] == 0).all())
+            sums = [vals[i][live & (cols[i] == c)].astype(np.float64).sum()
+                    for c in firsts]
+            np.testing.assert_allclose(av[i, :n].numpy(), sums, rtol=1e-6, atol=1e-6)
+    close(ref.gram_block_ref(agg_r[1], agg_r[0], agg_c[1], agg_c[0]), want,
+          PLAIN_TOL)
+
+
 def test_gram_dispatch_cpu_is_plain_and_counts_nothing():
     vr, cr, vc, cc = map(torch.from_numpy, _case(SHAPES[0], 1))
     before = dispatch.launch_counts()["gram_block"]
@@ -166,14 +192,32 @@ def test_gram_empty_and_shape_checks():
 @pytest.mark.gpu
 @pytest.mark.parametrize("shape", SHAPES + [(1, 144, 128, 144, 5000),
                                             (512, 144, 512, 144, 10**6),
+                                            (4000, 144, 1, 144, 10**6),
                                             (70, 200, 33, 150, 400)])
 def test_gpu_gram_kernel_matches_plain(cuda, shape):
+    """Against the plain version, and bit-equal to a second call (no
+    atomics), at ragged shapes, a serving append, the Thompson q×q Gram and
+    the Nyström pivot column."""
     vr, cr, vc, cc = (torch.from_numpy(a).to(cuda) for a in _case(shape, 3))
     before = ops.LAUNCHES["gram_block"]
     got = ops.gram_block_raw(vr, cr, vc, cc)
+    again = ops.gram_block_raw(vr, cr, vc, cc)
     torch.cuda.synchronize()
-    assert ops.LAUNCHES["gram_block"] == before + 1
+    assert ops.LAUNCHES["gram_block"] == before + 2
+    assert torch.equal(got, again)
     close(got, ref.gram_block_ref(vr, cr, vc, cc), KERNEL_TOL)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m_r", [3, 40])
+def test_gpu_gram_past_a_grid_dimension(cuda, m_r):
+    """A side of 1 100 000 rows at K = 4: the kernel's grid has no limit on
+    M_r or M_c, and either side may be the long one."""
+    vr, cr, vc, cc = (torch.from_numpy(a).to(cuda)
+                      for a in _case((m_r, 4, 1_100_000, 4, 50_000), 8))
+    got = ops.gram_block_raw(vr, cr, vc, cc)
+    close(got, ref.gram_block_ref(vr, cr, vc, cc), KERNEL_TOL)
+    close(ops.gram_block_raw(vc, cc, vr, cr), got.T, KERNEL_TOL)
 
 
 @pytest.mark.gpu
