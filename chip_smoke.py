@@ -11,7 +11,9 @@ non-zero exit and no result line):
                their `-Xptxas -v` registers / spills; the redesigned
                kernels (flash_attention's tensor-core instance, rmsnorm's
                16-byte instance, khat_fused's segment and gather kernels,
-               gram_block's aggregate and probe kernels) must spill nothing.
+               gram_block's aggregate and probe kernels, the walk sampler,
+               woodbury_apply's partials and finish kernels) must spill
+               nothing.
   2. parity    each kernel against its plain PyTorch version on the card at
                ragged shapes (1-D and R in {3, 16}, duplicate columns, zero
                slots, every walk scheme, an isolated node, bf16 and mixed
@@ -19,10 +21,15 @@ non-zero exit and no result line):
                the column payload never touches, an empty column payload,
                gram_block at M_r = 1, K_r != K_c, every main-path shape and
                a side of 1 100 000 rows; khat_fused and gram_block bit-equal
-               over two calls,
-               woodbury_apply over T in {1, 37, 4000}, r in 1..256, R in
-               1-D..64 and scalar / vector / masked D⁻¹), the walk golden
-               checksums of the JAX reference, and the five autograd
+               over two calls, the walk sampler at M in {1, 31, 33, one
+               block + 1}, 1..16 walkers and l_max 0..63,
+               woodbury_apply over T in {1, 37, 4000}, r in 1..263, R in
+               1-D..65 and scalar / vector / masked D⁻¹, bit-equal over two
+               calls, and on draws where float32 is far from float64
+               (random E⁻¹; T < r with unit-scale B) within twice the plain
+               version's own mean float64 error plus 1e-5 of scale), the walk
+               golden checksums of the JAX reference, and the five
+               autograd
                Functions against autograd through the plain versions;
                parity-lm-kernels: rmsnorm at the JAX tests' cases, the LM
                path's rows, every config width, M = 0, D = 2566 and an
@@ -87,10 +94,16 @@ non-zero exit and no result line):
                each within 1e-3.
  10. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
-               (gram_block at each of its seven shapes, the Nyström pivot
+               (walk_sampler at the monolithic trace, one chunk of 65536
+               rows and the wide K = 144 trace, bit-equal to the plain
+               version for every scheme at each, the bound counting the
+               adjacency rows of the nodes the walks visit;
+               gram_block at each of its seven shapes, the Nyström pivot
                column among them, each against torch.sparse.mm;
                woodbury_apply at T = 4000 for r in {64, 128, 256} and R in
-               {1, 9, 16}; the K̂ backward at the fit's shape; the fused
+               {1, 9, 16} as graph replays beside eager loops, bit-equal
+               over two calls; the K̂
+               backward at the fit's shape; the fused
                kernel at the posterior's and the solvers' CG shapes and the
                cross form, through the walk trace's column index, whose
                build ms and U are printed, with two calls bit-equal and a
@@ -106,7 +119,8 @@ non-zero exit and no result line):
 Each path (main, fit, serving, each BO loop, solvers, lm) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
 runs was never launched; a kernel's `launches` in the result line is the
-sum over those runs.
+sum over those runs.  walk_sampler's launches are also printed by (M, K)
+and woodbury_apply's by (T, r, R), per path and summed.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
 without the repository beside this file, it exits non-zero and prints no
@@ -183,6 +197,11 @@ SOLVE = dict(n_nodes=1_000_000, ring_k=3, n_walkers=16, p_halt=0.1, l_max=8,
 # woodbury_apply's timed shapes at T = 4000: ranks and RHS widths.
 WOOD_RANKS = (64, 128, 256)
 WOOD_COLS = (1, 9, 16)
+# walk_sampler's timed shapes: the monolithic trace, one chunk of the
+# chunked paths (core/walks.py DEFAULT_CHUNK rows) and the wide K = 144
+# trace of the serving and solvers configurations.
+WALK_SHAPES = (("monolithic", MAIN, MAIN["n_nodes"]), ("chunk", MAIN, MAIN["chunk"]),
+               ("wide", SERVE, SERVE["n_nodes"]))
 # gram_block's main-path shapes (M_r, K_r, M_c, K_c): factorisation and
 # refit_alpha, one append, a wave, a moments call, the Thompson cross-Gram,
 # the Thompson q×q Gram and the Nyström pivot column (solvers phase).
@@ -238,10 +257,13 @@ REPLACES = {
 
 # Kernel functions of the redesigned kernels, by library, whose ptxas spills
 # are gated at 0: flash_attention's tensor-core instance, rmsnorm's 16-byte
-# instance, khat_fused's two kernels and gram_block's two.
+# instance, khat_fused's two kernels, gram_block's two, the walk sampler and
+# woodbury_apply's two.
 REDESIGNED = {"flash_attention": ("flash_fwd_tc",), "rmsnorm": ("rmsnorm_vec",),
               "khat_fused": ("khat_segments", "khat_gather"),
-              "gram_block": ("gram_aggregate", "gram_probe")}
+              "gram_block": ("gram_aggregate", "gram_probe"),
+              "walk_sampler": ("walk_sample_kernel",),
+              "woodbury_apply": ("wb_partials", "wb_finish")}
 
 
 class PhaseError(RuntimeError):
@@ -449,6 +471,21 @@ def check_walk_cases(dev) -> None:
             # The isolated start node deposits only at step 0.
             expect(bool(torch.all(got[1][0].reshape(w, l_max + 1)[:, 1:] == 0)),
                    "isolated node deposits beyond step 0")
+    # The kernel's tiles: one row, rows on both sides of a block's walks
+    # (256 threads, fewer past 24 steps), 1..16 walkers, l_max 0..63.
+    edges_cases = 0
+    for w, l_max in [(1, 0), (3, 5), (8, 5), (16, 8), (1, 63), (3, 63)]:
+        per_block = min(256, (6144 // (l_max + 1)) & ~31) // w
+        for m in sorted({1, 31, 33, per_block + 1}):
+            for scheme in ("iid", "qmc"):
+                kw = dict(n_walkers=w, p_halt=0.2, l_max=l_max, reweight=False,
+                          scheme=scheme)
+                got = ops.walk_sample(g.neighbors, g.weights, g.deg, nodes[:m], 55, **kw)
+                want = ref.walk_sample_ref(g.neighbors, g.weights, g.deg, nodes[:m], 55,
+                                           **kw)
+                expect(all(torch.equal(a, b) for a, b in zip(got, want)),
+                       f"walk kernel differs at M={m}, {kw}")
+                edges_cases += 1
     g36 = generators.grid2d(6, 6, device=dev)
     nodes36 = torch.arange(36, dtype=torch.int32, device=dev)
     cols, loads, lens = ops.walk_sample(
@@ -461,8 +498,9 @@ def check_walk_cases(dev) -> None:
     expect(l_crc == GOLDEN["lens_crc"], f"golden lens crc {l_crc}")
     expect(abs(s - GOLDEN["loads_sum"]) < GOLDEN["loads_tol"], f"golden loads sum {s}")
     print("[parity] walk_sampler: cols/lens/loads bit-equal to the plain version "
-          "for 4 schemes x 3 configs (M=777, isolated node); JAX golden "
-          f"cols crc {c_crc}, lens crc {l_crc}, loads sum {s:.5f}")
+          f"for 4 schemes x 3 configs (M=777, isolated node) and {edges_cases} "
+          "tile cases (M in 1/31/33/block+1, 1..16 walkers, l_max 0..63); JAX "
+          f"golden cols crc {c_crc}, lens crc {l_crc}, loads sum {s:.5f}")
 
 
 # --------------------------------------------------------------------------
@@ -618,6 +656,7 @@ def phase_main(dev) -> dict:
     dispatch.reset_launch_counts()
     out = run_path(MAIN, dev, dev, timings)
     counts = dispatch.launch_counts()
+    record_shapes("main")
     for name in ("walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused"):
         expect(counts[name] > 0, f"main path never launched {name}")
     check_path_outputs(out, MAIN, "main")
@@ -781,11 +820,40 @@ def _wood_inputs(rng, t: int, r: int, cols, noise: str):
     return b, dinv, einv, v
 
 
+def _wood_capacity_inputs(rng, t: int, r: int, cols, noise: str):
+    """As _wood_inputs, but E⁻¹ is the inverse of the capacitance
+    E = I + BᵀD⁻¹B, as the Nyström preconditioner builds it, made
+    non-symmetric by an upper-triangular term of a tenth of its scale (so
+    that E⁻ᵀ ≠ E⁻¹ shows)."""
+    b, dinv, _, v = _wood_inputs(rng, t, r, cols, noise)
+    e = np.eye(r) + b.T.astype(np.float64) @ (dinv[:, None].astype(np.float64) * b)
+    einv = np.linalg.inv(e)
+    einv = einv + 0.1 * np.abs(einv).max() * np.triu(np.ones((r, r)), 1)
+    return b, dinv, einv.astype(np.float32), v
+
+
+def _wood_unit_b_inputs(rng, t: int, r: int, cols):
+    """Unit-scale B [T, r], a D⁻¹ in (2/3, 2) with every fourth entry 1.0,
+    E⁻¹ = (I + BᵀD⁻¹B)⁻¹ and v [T(, R)].  With T < r, out = w − D⁻¹Bs
+    cancels w to about 1/(1 + r) of its scale, so float32 in any summation
+    order is far from float64 there."""
+    b = rng.standard_normal((t, r)).astype(np.float32)
+    dinv = (1.0 / (0.5 + rng.random(t))).astype(np.float32)
+    dinv[::4] = 1.0
+    e = np.eye(r) + b.T.astype(np.float64) @ (dinv[:, None].astype(np.float64) * b)
+    v = rng.standard_normal((t,) if cols is None else (t, cols)).astype(np.float32)
+    return b, dinv, np.linalg.inv(e).astype(np.float32), v
+
+
 def check_woodbury_cases(dev) -> None:
     """woodbury_apply against its plain version over T x r x R x noise kinds,
-    then its autograd Function (d_v on the kernel with E⁻ᵀ, payload
-    cotangents through the plain version) against autograd through the
-    plain version, all on the card."""
+    each result bit-equal over two calls; then its autograd Function (d_v on
+    the kernel with E⁻ᵀ, payload cotangents through the plain version)
+    against autograd through the plain version; then r = 263, R = 65 on
+    capacitance-inverse operands; then draws on which float32 itself is far
+    from float64 (random E⁻¹; T < r with unit-scale B), held to a float64
+    reference: the kernel's mean error over 8 draws at most twice the plain
+    version's own plus 1e-5 of scale.  All on the card."""
     import torch
 
     from repro_torch.kernels.woodbury_apply import ops, ref
@@ -794,32 +862,33 @@ def check_woodbury_cases(dev) -> None:
     t_ = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
     cases = 0
     worst = 0.0
+
+    def case(arrs):
+        nonlocal cases, worst
+        b, dinv, einv, v = map(t_, arrs)
+        t, r = b.shape
+        want = ref.woodbury_apply_ref(b, dinv, einv, v)
+        width = 1 if v.dim() == 1 else v.shape[1]
+        before = ops.LAUNCHES["woodbury_apply"]
+        got = ops.woodbury_apply_raw(b, dinv, einv, v)
+        expect(ops.LAUNCHES["woodbury_apply"] == before + -(-width // ops.launch_cols(r)),
+               f"woodbury_apply T={t} r={r} R={width}: launches "
+               f"{ops.LAUNCHES['woodbury_apply'] - before}")
+        _, rel = rel_err(got, want)
+        expect(got.shape == v.shape and rel <= KERNEL_RTOL,
+               f"woodbury_apply T={t} r={r} R={width}: rel {rel:.2e}")
+        expect(torch.equal(got, ops.woodbury_apply_raw(b, dinv, einv, v)),
+               f"woodbury_apply T={t} r={r} R={width}: two calls differ")
+        worst = max(worst, rel)
+        cases += 1
+
     for t in (1, 37, 4000):
         for r in (1, 7, 64, 128, 256):
             for cols in (None, 3, 9, 16, 64):
                 for noise in ("scalar", "vector", "masked"):
-                    b, dinv, einv, v = map(t_, _wood_inputs(rng, t, r, cols, noise))
-                    before = ops.LAUNCHES["woodbury_apply"]
-                    got = ops.woodbury_apply_raw(b, dinv, einv, v)
-                    expect(ops.LAUNCHES["woodbury_apply"] == before + 1,
-                           "woodbury_apply_raw did not count one launch")
-                    _, rel = rel_err(got, ref.woodbury_apply_ref(b, dinv, einv, v))
-                    expect(got.shape == v.shape and rel <= KERNEL_RTOL,
-                           f"woodbury_apply T={t} r={r} R={cols} {noise}: "
-                           f"rel {rel:.2e}")
-                    worst = max(worst, rel)
-                    cases += 1
-    # A v wider than one launch's 64 columns runs as two launches.
-    b, dinv, einv, v = map(t_, _wood_inputs(rng, 333, 64, 100, "vector"))
-    before = ops.LAUNCHES["woodbury_apply"]
-    _, rel = rel_err(ops.woodbury_apply_raw(b, dinv, einv, v),
-                     ref.woodbury_apply_ref(b, dinv, einv, v))
-    expect(rel <= KERNEL_RTOL and ops.LAUNCHES["woodbury_apply"] == before + 2,
-           f"woodbury_apply R=100: rel {rel:.2e}")
-    print(f"[parity] woodbury_apply matches its plain version within "
-          f"{KERNEL_RTOL:g} of scale in {cases + 1} cases (T in 1/37/4000, r in "
-          f"1..256, R in 1-D/3/9/16/64/100, scalar/vector/masked D⁻¹; worst "
-          f"rel {worst:.2e})")
+                    case(_wood_inputs(rng, t, r, cols, noise))
+    # A v wider than one launch's columns runs as several launches.
+    case(_wood_inputs(rng, 333, 64, 100, "vector"))
 
     for cols in (None, 9):
         b, dinv, einv, v = map(t_, _wood_inputs(rng, 4000, 128, cols, "masked"))
@@ -844,6 +913,48 @@ def check_woodbury_cases(dev) -> None:
           "d_b, d_dinv, d_einv match autograd through the plain version within "
           f"{KERNEL_RTOL:g} of scale (R = 1-D and 9; forward + d_v = 2 launches)")
 
+    rng = np.random.default_rng(17)
+    for t in (1, 37, 4000):
+        for r, cols in ((263, None), (263, 16), (37, 65), (128, 65), (263, 65)):
+            case(_wood_capacity_inputs(rng, t, r, cols, "vector"))
+    print(f"[parity] woodbury_apply matches its plain version within "
+          f"{KERNEL_RTOL:g} of scale and is bit-equal over two calls in {cases} "
+          f"cases (T in 1/37/4000, r in 1..263, R in 1-D/3/9/16/64/65/100, "
+          f"scalar/vector/masked D⁻¹; worst rel {worst:.2e})")
+
+    # Draws on which float32 is far from float64: 8 random-E⁻¹ draws (B of
+    # unit rows) and 8 unit-scale-B draws with T < r at each shape.  Each
+    # error is taken against the float64 result and divided by its scale;
+    # the gate holds the mean over a shape's draws, since two float32
+    # summation orders part by 2-3x on single draws.
+    rng = np.random.default_rng(23)
+    groups = [("random E⁻¹", (t, r, cols),
+               lambda t, r, cols, noise=noise: _wood_inputs(rng, t, r, cols, noise))
+              for t, r, cols, noise in ((1, 64, 16, "masked"), (1, 263, 65, "masked"),
+                                        (37, 263, 65, "vector"), (4000, 128, 9, "masked"))]
+    groups += [("unit B, T < r", shape,
+                lambda t, r, cols: _wood_unit_b_inputs(rng, t, r, cols))
+               for shape in ((1, 64, 16), (1, 263, 65), (37, 128, 9), (37, 263, 65))]
+    for kind, (t, r, cols), make in groups:
+        k64, p64 = [], []
+        for _ in range(8):
+            b, dinv, einv, v = map(t_, make(t, r, cols))
+            want64 = ref.woodbury_apply_ref(b.double(), dinv.double(), einv.double(),
+                                            v.double())
+            got = ops.woodbury_apply_raw(b, dinv, einv, v)
+            expect(torch.equal(got, ops.woodbury_apply_raw(b, dinv, einv, v)),
+                   f"woodbury_apply {kind} T={t} r={r} R={cols}: two calls differ")
+            k64.append(rel_err(got, want64)[1])
+            p64.append(rel_err(ref.woodbury_apply_ref(b, dinv, einv, v), want64)[1])
+        k64, p64 = np.array(k64), np.array(p64)
+        print(f"[parity] woodbury_apply against float64, {kind} T={t} r={r} R={cols} "
+              f"(8 draws): kernel mean {k64.mean():.3e} max {k64.max():.3e}, plain "
+              f"float32 mean {p64.mean():.3e} max {p64.max():.3e} of scale; per-draw "
+              f"ratio median {np.median(k64 / p64):.2f} max {(k64 / p64).max():.2f}")
+        expect(k64.mean() <= 2 * p64.mean() + KERNEL_RTOL,
+               f"woodbury_apply {kind} T={t} r={r} R={cols}: kernel {k64.mean():.2e} "
+               f"of scale from float64 on average, plain float32 {p64.mean():.2e}")
+
 
 def reset_counts():
     from repro_torch.kernels import dispatch
@@ -857,10 +968,27 @@ def counts_now() -> dict:
     return dispatch.launch_counts()
 
 
+# walk_sampler's and woodbury_apply's launches by shape, per path.
+PATH_SHAPES: dict = {}
+
+
+def record_shapes(label: str) -> None:
+    """Keep and print the launches by shape since the last reset of the
+    counts (walk_sampler by (M, K), woodbury_apply by (T, r, R))."""
+    from repro_torch.kernels import dispatch
+
+    PATH_SHAPES[label] = shapes = dispatch.launch_shapes()
+    for name, by in shapes.items():
+        if by:
+            print(f"[{label}] {name} launches by shape: " + ", ".join(
+                f"{'x'.join(map(str, k))}: {n}" for k, n in sorted(by.items(), key=str)))
+
+
 def gate_counts(label: str, counts: dict, names) -> None:
     for name in names:
         expect(counts[name] > 0, f"{label} path never launched {name}")
     print(f"[{label}] launches over the {label} path: {json.dumps(counts)}")
+    record_shapes(label)
 
 
 def profile_busy(label: str, fn, dev, warm_s: float) -> dict:
@@ -2068,7 +2196,6 @@ def phase_timing(dev, results: dict) -> list[dict]:
     from repro_torch.kernels.ell_spmv import ops as eops
     from repro_torch.kernels.ell_spmv import ref as eref
     from repro_torch.kernels.walk_sampler import ops as wops
-    from repro_torch.kernels.walk_sampler import ref as wref
 
     main = results["main"]
     graph, wcfg, f, train, y = make_problem(MAIN, dev)
@@ -2100,21 +2227,11 @@ def phase_timing(dev, results: dict) -> list[dict]:
               f"{'n/a' if library_ms is None else f'{library_ms:.4f} ms'}, "
               f"max_abs_err {err:.3e} (rel {rel:.2e})")
 
-    # 1. Walk sampling over all N rows (the monolithic trace).
+    # 1. Walk sampling at its three shapes; then the monolithic trace again
+    # for the products below.
+    rows.append(timing_walks(dev, graph, seed, counts["walk_sampler"]))
     got = wops.walk_sample(*gargs, **wkw)
-    want = wref.walk_sample_ref(*gargs, **wkw)
-    expect(torch.equal(got[0], want[0]) and torch.equal(got[2], want[2]),
-           "walk_sampler: cols/lens differ at the main-path shape")
-    werr = rel_err(got[1], want[1])
-    expect(werr[0] == 0.0, f"walk_sampler: loads differ by {werr[0]:.3e}")
-    del want
     k = wcfg.slots
-    d = graph.max_deg
-    wbytes = n * d * 8 + n * 4 + n * 4 + 3 * n * k * 4
-    row("walk_sampler", cuda_ms(lambda: wops.walk_sample(*gargs, **wkw), 20),
-        cuda_ms(lambda: wref.walk_sample_ref(*gargs, **wkw), 3), werr,
-        bound(wbytes, n * wcfg.n_walkers * (wcfg.l_max + 1) * 6), None)
-
     trace = walks.WalkTrace(*got)
     del got
     vals = features.feature_values(trace, f).contiguous()
@@ -2223,6 +2340,71 @@ def phase_timing(dev, results: dict) -> list[dict]:
     rows.append(timing_flash(dev, counts["flash_attention"]))
     rows.append(timing_rmsnorm(dev, counts["rmsnorm"]))
     return rows
+
+
+def shapes_summed(name: str) -> dict[str, int]:
+    """A kernel's launches by shape, summed over the paths' runs."""
+    total: dict[str, int] = {}
+    for by in PATH_SHAPES.values():
+        for k, n in by.get(name, {}).items():
+            key = "x".join(map(str, k))
+            total[key] = total.get(key, 0) + n
+    return total
+
+
+def timing_walks(dev, graph, seed: int, launches: int) -> dict:
+    """walk_sampler at WALK_SHAPES: bit-equal to the plain version for every
+    scheme, device time as graph replays (few: a replayed graph keeps every
+    call's outputs) and eager loops, the plain version's time, and the
+    bound: the outputs written once and the adjacency row and degree of
+    each node the walks visit (counted from this run's cols)."""
+    import torch
+
+    from repro_torch.kernels.walk_sampler import ops, ref, rng
+
+    d = graph.max_deg
+    shapes = []
+    for label, cfg, m in WALK_SHAPES:
+        nodes = torch.arange(m, dtype=torch.int32, device=dev)
+        kw = dict(n_walkers=cfg["n_walkers"], p_halt=cfg["p_halt"], l_max=cfg["l_max"])
+        args = (graph.neighbors, graph.weights, graph.deg, nodes, seed)
+        for scheme in rng.SCHEMES:
+            got = ops.walk_sample(*args, **kw, scheme=scheme)
+            want = ref.walk_sample_ref(*args, **kw, scheme=scheme)
+            expect(all(torch.equal(a, b) for a, b in zip(got, want)),
+                   f"walk_sampler {label}: {scheme} differs from the plain version")
+            if scheme == "iid":
+                seen = torch.zeros(graph.n_nodes, dtype=torch.bool, device=dev)
+                seen[got[0].reshape(-1).long()] = True
+                visited = int(seen.sum())
+                del seen
+            del got, want
+        k = cfg["n_walkers"] * (cfg["l_max"] + 1)
+        fn = lambda: ops.walk_sample(*args, **kw)   # noqa: E731
+        reps = 40 if m < graph.n_nodes else (5 if k <= 48 else 3)
+        ms, eager = graph_ms(fn, reps), cuda_ms(fn, max(reps, 5))
+        pms = cuda_ms(lambda: ref.walk_sample_ref(*args, **kw), 2, warmup=1)
+        b = bound(3 * m * k * 4 + m * 4 + visited * (d * 8 + 4), m * k * 6)
+        print(f"[timing] walk_sampler {label} [{m}, {k}] ({cfg['n_walkers']} walkers, "
+              f"l_max {cfg['l_max']}): kernel {ms:.4f} ms (graph; eager loop "
+              f"{eager:.4f} ms), plain {pms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+              f"{visited} nodes visited), bit-equal for {len(rng.SCHEMES)} schemes")
+        shapes.append(dict(shape=[m, k], ms=ms, eager_ms=eager, plain_ms=pms,
+                           bound_ms=b[0], bound_by=b[1], visited=visited,
+                           max_abs_err=0.0))
+        torch.cuda.empty_cache()
+    head = shapes[0]
+    by_shape = shapes_summed("walk_sampler")
+    print(f"[timing] walk_sampler launches by (M, K) over the paths: {json.dumps(by_shape)}")
+    print(f"[timing] walk_sampler: kernel {head['ms']:.4f} ms, plain "
+          f"{head['plain_ms']:.4f} ms, bound {head['bound_ms']:.4f} ms "
+          f"({head['bound_by']}), library n/a, max_abs_err 0.000e+00 (rel 0.00e+00)")
+    return dict(name="walk_sampler", route="cuda",
+                source="src/repro_torch/kernels/csrc/walk_sampler.cu",
+                replaces=REPLACES["walk_sampler"], launches=launches,
+                max_abs_err=0.0, ms=head["ms"], plain_ms=head["plain_ms"],
+                bound_ms=head["bound_ms"], bound_by=head["bound_by"],
+                library_ms=None, shapes=shapes, launches_by_shape=by_shape)
 
 
 def timing_fit(dev, fit: dict, n: int) -> None:
@@ -2381,22 +2563,26 @@ def timing_woodbury(dev, solv: dict, launches: int) -> tuple[dict, dict]:
         b, dinv, einv = pc._b, pc._dinv, pc._einv
         for cols in WOOD_COLS:
             v = torch.randn((t,) if cols == 1 else (t, cols), generator=gen, device=dev)
-            got = ops.woodbury_apply_raw(b, dinv, einv, v)
-            errs = rel_err(got, ref.woodbury_apply_ref(b, dinv, einv, v))
-            expect(errs[1] <= KERNEL_RTOL,
-                   f"woodbury_apply at T={t}, r={r}, R={cols}: rel {errs[1]:.2e}")
-            ms = cuda_ms(lambda: ops.woodbury_apply_raw(b, dinv, einv, v), 200)
+            want = ref.woodbury_apply_ref(b, dinv, einv, v)
+            fn = lambda: ops.woodbury_apply_raw(b, dinv, einv, v)   # noqa: E731
+            x = fn()
+            errs = rel_err(x, want)
+            expect(errs[1] <= KERNEL_RTOL, f"woodbury_apply at T={t}, r={r}, "
+                   f"R={cols}: rel {errs[1]:.2e}")
+            expect(torch.equal(x, fn()), f"woodbury_apply at T={t}, r={r}, "
+                   f"R={cols}: two calls differ")
+            ms, eager = graph_ms(fn, 200), cuda_ms(fn, 200)
             pms = cuda_ms(lambda: ref.woodbury_apply_ref(b, dinv, einv, v), 200)
             # B, D⁻¹, E⁻¹ and v read once, out written once; a multiply-add
             # per entry of BᵀW and of B s, and of E⁻¹u.
             bd = bound((t * r + t + r * r + 2 * t * cols) * 4,
                        4 * t * r * cols + 2 * r * r * cols)
             print(f"[timing] woodbury_apply T={t} r={r} R={cols}: kernel "
-                  f"{ms:.4f} ms, plain {pms:.4f} ms, bound {bd[0] * 1e3:.3f} us "
-                  f"({bd[1]}), library none, max_abs_err {errs[0]:.3e} "
-                  f"(rel {errs[1]:.2e})")
-            shapes.append(dict(shape=[t, r, cols], ms=ms, plain_ms=pms,
-                               bound_ms=bd[0], bound_by=bd[1],
+                  f"{ms * 1e3:.2f} us graph, {eager * 1e3:.2f} us eager loop; plain "
+                  f"{pms:.4f} ms, bound {bd[0] * 1e3:.3f} us ({bd[1]}), library "
+                  f"none, max_abs_err {errs[0]:.3e}, bit-equal over two calls")
+            shapes.append(dict(shape=[t, r, cols], ms=ms, eager_ms=eager,
+                               plain_ms=pms, bound_ms=bd[0], bound_by=bd[1],
                                max_abs_err=errs[0]))
     # The fused K̂ kernel at the solvers phase's CG shape (K = 144, R = 1),
     # through the training trace's column index, and that CG iteration's
@@ -2436,13 +2622,17 @@ def timing_woodbury(dev, solv: dict, launches: int) -> tuple[dict, dict]:
                       bound_ms=kb[0], bound_by=kb[1], library_ms=lib,
                       max_abs_err=err)
     head = next(x for x in shapes if x["shape"] == [t, SOLVE["rank"], 1])
+    by_shape = shapes_summed("woodbury_apply")
+    print(f"[timing] woodbury_apply launches by (T, r, R) over the paths: "
+          f"{json.dumps(by_shape)}")
     return dict(name="woodbury_apply", route="cuda",
                 source="src/repro_torch/kernels/csrc/woodbury_apply.cu",
                 replaces=REPLACES["woodbury_apply"], launches=launches,
                 max_abs_err=max(x["max_abs_err"] for x in shapes),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                library_ms=None, shapes=shapes), solvers_cg
+                library_ms=None, shapes=shapes,
+                launches_by_shape=by_shape), solvers_cg
 
 
 def window_pairs(s: int, w: int) -> int:

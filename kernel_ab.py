@@ -1,29 +1,42 @@
 #!/usr/bin/env python3
-"""Time the fused K̂ and cross-Gram kernels of this checkout against those of
-another checkout of the repository, on one CUDA card, with the same inputs.
+"""Time the walk sampler, fused K̂, cross-Gram and Woodbury kernels of this
+checkout against those of another checkout of the repository, on one CUDA
+card, with the same inputs.
 
-    python3 kernel_ab.py --other PATH [--rounds 2]
+    python3 kernel_ab.py --other PATH [--rounds 2] [--kernels a,b,...]
 
 PATH is the root of the other checkout (for example the parent commit,
 unpacked with ``git archive``).  Each side runs in its own process, which
-imports ``repro_torch`` from that side's ``src/``, builds its two kernels
-and times them at the main-path shapes; the sides alternate other, this,
-this, other (``--rounds`` pairs), so that a drift of the card's clocks
-falls on both.  Inputs are walk payloads of ring(10⁶, k=3) drawn by the
-port's walk sampler from fixed seeds, identical on both sides:
+imports ``repro_torch`` from that side's ``src/``, builds its kernels and
+times them at the main-path shapes; the sides alternate other, this, this,
+other (``--rounds`` pairs), so that a drift of the card's clocks falls on
+both.  ``--kernels`` picks among walk_sampler, woodbury_apply, gram_block
+and khat_fused (default: all).  Inputs are ring(10⁶, k=3) and walk payloads
+of it drawn by the port's walk sampler from fixed seeds, identical on both
+sides:
 
-  gram_block  chip_smoke.py's serving shapes (K = 144, capacity 128), the
-              Thompson q×q Gram and the Nyström pivot column [4000, 144] ×
-              [1, 144] of the solvers' clustered block;
-  khat_fused  the posterior's CG shape [1024, 48], R = 16 (f32 and bf16),
-              the solvers' CG shape [4000, 144], R = 1, and the cross form
-              [10⁶, 48] × [1024, 48], R = 16.
+  walk_sampler    the monolithic trace (10⁶ rows, 8 walkers, l_max 5:
+                  K = 48), one chunk of the chunked paths (65536 rows,
+                  K = 48) and the wide trace (10⁶ rows, 16 walkers, l_max 8:
+                  K = 144); the bound counts the outputs and the adjacency
+                  rows of the nodes the walks visit;
+  woodbury_apply  T = 4000 × r in {64, 128, 256} × R in {1, 9, 16} on the
+                  Nyström operands of chip_smoke.py's solvers block (K = 144,
+                  β = 4, σ_f = 25, σ² = 1e-2); every time is also taken as
+                  profiled device time (``prof``);
+  gram_block      chip_smoke.py's serving shapes (K = 144, capacity 128),
+                  the Thompson q×q Gram and the Nyström pivot column
+                  [4000, 144] × [1, 144] of the solvers' clustered block;
+  khat_fused      the posterior's CG shape [1024, 48], R = 16 (f32 and
+                  bf16), the solvers' CG shape [4000, 144], R = 1, and the
+                  cross form [10⁶, 48] × [1024, 48], R = 16.
 
-Each time is the device time per call of CUDA-graph replays (``graph``) and
-of an eager loop timed with CUDA events (``eager``, which a host slower than
-the kernel bounds).  A side whose wrapper takes a column index gets the one
-its walk trace keeps, built once and timed apart (``index_ms``, host clock
-ending in a synchronize).  Prints one JSON line per side and round, then a
+Each time is the device time per call of CUDA-graph replays (``graph``; n/a
+where a side's launch cannot be captured) and of an eager loop timed with
+CUDA events (``eager``, which a host slower than the kernel bounds).  A
+side whose wrapper takes a column index gets the one its walk trace keeps,
+built once and timed apart (``index_ms``, host clock ending in a
+synchronize).  Prints one JSON line per side and round, then a
 table of medians.  Exits non-zero without a CUDA card.
 """
 from __future__ import annotations
@@ -43,6 +56,16 @@ N = 1_000_000
 MAIN = dict(n_walkers=8, p_halt=0.2, l_max=5, n_train=1024, r=16)
 WIDE = dict(n_walkers=16, p_halt=0.1, l_max=8, capacity=128, solve_rows=4000)
 GRAM_ROWS = (1, 64, 128, 256, 512)
+KERNELS = ("walk_sampler", "woodbury_apply", "gram_block", "khat_fused")
+# walk_sampler's shapes: (label, rows, walker config, graph-replay and eager
+# repetitions).  A replayed graph keeps every call's outputs, so the wide
+# trace (1.7 GB a call) replays few.
+WALK_SHAPES = (("1000000x48", N, MAIN, 5, 10), ("65536x48", 65536, MAIN, 40, 40),
+               ("1000000x144", N, WIDE, 3, 5))
+WOOD_RANKS = (64, 128, 256)
+WOOD_COLS = (1, 9, 16)
+SOLVE = dict(beta=4.0, sigma_f=25.0, sigma_n2=1e-2)
+HBM_BYTES_PER_S = 3.35e12
 
 
 def cuda_ms(fn, reps: int) -> float:
@@ -89,7 +112,90 @@ def graph_ms(fn, reps: int) -> float | None:
     return e0.elapsed_time(e1) / reps
 
 
-def worker(src: str) -> dict:
+def prof_ms(fn, reps: int) -> float | None:
+    """Device ms per call from torch.profiler: the device time of every
+    kernel, memset and copy of ``reps`` calls, over ``reps``; None when the
+    profiler sees no device time."""
+    import warnings
+
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as pr:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in pr.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps if us else None
+
+
+def timed(fn, reps, eager_reps=None, prof=False) -> dict:
+    out = dict(graph=graph_ms(fn, reps), eager=cuda_ms(fn, eager_reps or reps))
+    if prof:
+        out["prof"] = prof_ms(fn, reps)
+    return out
+
+
+def walk_cases(dev, graph, out: dict) -> None:
+    """walk_sampler at WALK_SHAPES, with the bound of this run's inputs."""
+    import torch
+
+    from repro_torch.kernels.walk_sampler import ops as wops
+
+    nbytes_adj = graph.neighbors.shape[1] * 8 + 4   # a visited node's row and degree
+    for label, rows, cfg, reps, eager_reps in WALK_SHAPES:
+        nodes = torch.arange(rows, dtype=torch.int32, device=dev)
+        kw = dict(n_walkers=cfg["n_walkers"], p_halt=cfg["p_halt"], l_max=cfg["l_max"])
+        args = (graph.neighbors, graph.weights, graph.deg, nodes, 1214163296)
+        cols = wops.walk_sample(*args, **kw)[0]
+        seen = torch.zeros(N, dtype=torch.bool, device=dev)
+        seen[cols.reshape(-1).long()] = True
+        visited = int(seen.sum())
+        del cols, seen
+        k = cfg["n_walkers"] * (cfg["l_max"] + 1)
+        nbytes = 3 * rows * k * 4 + rows * 4 + visited * nbytes_adj
+        out["walk_sampler"][label] = dict(
+            timed(lambda: wops.walk_sample(*args, **kw), reps, eager_reps),
+            visited=visited, bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        torch.cuda.empty_cache()
+
+
+def woodbury_cases(dev, graph, out: dict) -> None:
+    """woodbury_apply at T = 4000 × WOOD_RANKS × WOOD_COLS on the solvers
+    block's Nyström operands."""
+    import math
+
+    import torch
+
+    from repro_torch import solvers
+    from repro_torch.core import linops, modulation, walks
+    from repro_torch.kernels.woodbury_apply import ops as wops
+
+    t = WIDE["solve_rows"]
+    f = modulation.diffusion(l_max=WIDE["l_max"])({
+        "log_beta": torch.tensor(math.log(SOLVE["beta"]), device=dev),
+        "log_sigma_f": torch.tensor(math.log(SOLVE["sigma_f"]), device=dev)})
+    train = torch.arange(t, dtype=torch.int32, device=dev)
+    tr = walks.sample_walks_for_nodes(graph, train, 1214163296, WIDE["n_walkers"],
+                                      WIDE["p_halt"], WIDE["l_max"])
+    h = linops.shifted(tr, f, SOLVE["sigma_n2"], N)
+    gen = torch.Generator(device=dev).manual_seed(6)
+    for r in WOOD_RANKS:
+        pc = solvers.nystrom_precond(h, rank=r)
+        b, dinv, einv = pc._b, pc._dinv, pc._einv
+        for cols in WOOD_COLS:
+            v = torch.randn((t,) if cols == 1 else (t, cols), generator=gen, device=dev)
+            out["woodbury_apply"][f"{t}x{r}x{cols}"] = timed(
+                lambda: wops.woodbury_apply_raw(b, dinv, einv, v), 200, prof=True)
+
+
+def worker(src: str, kernels: list[str]) -> dict:
     sys.path.insert(0, str(Path(src) / "src"))
     import torch
 
@@ -102,10 +208,19 @@ def worker(src: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    build.build_all(("khat_fused", "gram_block"))
-    out = dict(src=src, build_s=time.perf_counter() - t0, gram={}, khat={})
-    indexed = "index" in inspect.signature(eops.khat_fused_raw).parameters
+    build.build_all(tuple(x for x in build.SOURCES
+                          if x not in ("flash_attention", "rmsnorm")))
+    out = dict(src=src, build_s=time.perf_counter() - t0,
+               **{k: {} for k in kernels})
     graph = generators.ring(N, k=3, device=dev)
+    if "walk_sampler" in kernels:
+        walk_cases(dev, graph, out)
+    if "woodbury_apply" in kernels:
+        woodbury_cases(dev, graph, out)
+    out["device"] = torch.cuda.get_device_name(0)
+    if "gram_block" not in kernels and "khat_fused" not in kernels:
+        return out
+    indexed = "index" in inspect.signature(eops.khat_fused_raw).parameters
     rng = np.random.default_rng(16)
 
     def rows(cfg, nodes, f):
@@ -114,24 +229,24 @@ def worker(src: str) -> dict:
             cfg["n_walkers"], cfg["p_halt"], cfg["l_max"])
         return tr, features.feature_values(tr, f).contiguous(), tr.cols.contiguous()
 
-    def timed(fn, reps):
-        return dict(graph=graph_ms(fn, reps), eager=cuda_ms(fn, reps))
-
     # Cross-Gram: serving payloads and the Nyström column.
     mod = modulation.diffusion(l_max=WIDE["l_max"])
     f_wide = mod({"log_beta": torch.tensor(np.log(4.0), device=dev),
                   "log_sigma_f": torch.tensor(np.log(25.0), device=dev)})
-    pay = {m: rows(WIDE, rng.choice(N, m, replace=False), f_wide)[1:]
-           for m in GRAM_ROWS}
-    shapes = [(m, WIDE["capacity"]) for m in GRAM_ROWS] + [(512, 512)]
-    for m_r, m_c in shapes:
-        (vr, cr), (vc, cc) = pay[m_r], pay[m_c]
-        out["gram"][f"{m_r}x{m_c}"] = timed(
-            lambda: gops.gram_block_raw(vr, cr, vc, cc), 50)
     tr_s, vs, cs = rows(WIDE, np.arange(WIDE["solve_rows"]), f_wide)
-    piv_v, piv_c = vs[2000:2001].contiguous(), cs[2000:2001].contiguous()
-    out["gram"]["4000x1"] = timed(
-        lambda: gops.gram_block_raw(vs, cs, piv_v, piv_c), 100)
+    if "gram_block" in kernels:
+        pay = {m: rows(WIDE, rng.choice(N, m, replace=False), f_wide)[1:]
+               for m in GRAM_ROWS}
+        shapes = [(m, WIDE["capacity"]) for m in GRAM_ROWS] + [(512, 512)]
+        for m_r, m_c in shapes:
+            (vr, cr), (vc, cc) = pay[m_r], pay[m_c]
+            out["gram_block"][f"{m_r}x{m_c}"] = timed(
+                lambda: gops.gram_block_raw(vr, cr, vc, cc), 50)
+        piv_v, piv_c = vs[2000:2001].contiguous(), cs[2000:2001].contiguous()
+        out["gram_block"]["4000x1"] = timed(
+            lambda: gops.gram_block_raw(vs, cs, piv_v, piv_c), 100)
+    if "khat_fused" not in kernels:
+        return out
 
     # Fused K̂: the CG shapes and the cross form.
     mod = modulation.diffusion(l_max=MAIN["l_max"])
@@ -160,7 +275,7 @@ def worker(src: str) -> dict:
     def khat(name, v_r, c_r, v_c, c_c, v, tr_c, reps):
         extra = index_of(tr_c)
         kw = {"index": extra.pop("index")} if extra else {}
-        out["khat"][name] = dict(timed(
+        out["khat_fused"][name] = dict(timed(
             lambda: eops.khat_fused_raw(v_r, c_r, v_c, c_c, v, N, **kw), reps), **extra)
 
     khat("posterior CG f32", vx, cx, vx, cx, alpha, tr_x, 100)
@@ -171,16 +286,30 @@ def worker(src: str) -> dict:
                               MAIN["l_max"])
     vf = features.feature_values(full, f_main).contiguous()
     khat("cross", vf, full.cols, vx, cx, alpha, tr_x, 20)
-    out["device"] = torch.cuda.get_device_name(0)
     return out
+
+
+def _median(runs: list, kind: str, shape: str, how: str):
+    xs = []
+    for r in runs:
+        cell = r[kind].get(shape, {})
+        if cell.get(how) is not None:
+            xs.append(cell[how])
+    return float(np.median(xs)) if xs else None
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--other", help="root of the other checkout")
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", default=",".join(KERNELS),
+                    help="comma-separated subset of " + ", ".join(KERNELS))
     ap.add_argument("--worker", help=argparse.SUPPRESS)
     args = ap.parse_args()
+    kernels = [k for k in args.kernels.split(",") if k]
+    bad = sorted(set(kernels) - set(KERNELS))
+    if bad:
+        ap.error(f"unknown kernels {bad}; valid: {', '.join(KERNELS)}")
     try:
         import torch
     except ImportError:
@@ -190,7 +319,7 @@ def main() -> int:
         print("kernel_ab: no CUDA device", file=sys.stderr)
         return 2
     if args.worker:
-        print(json.dumps(worker(args.worker)))
+        print(json.dumps(worker(args.worker, kernels)))
         return 0
     if not args.other:
         ap.error("--other is required")
@@ -198,7 +327,8 @@ def main() -> int:
     runs = {"other": [], "this": []}
     for side in ["other", "this", "this", "other"] * args.rounds:
         src = other if side == "other" else str(ROOT)
-        res = subprocess.run([sys.executable, __file__, "--worker", src],
+        res = subprocess.run([sys.executable, __file__, "--worker", src,
+                              "--kernels", ",".join(kernels)],
                              capture_output=True, text=True, timeout=900)
         if res.returncode != 0:
             print(res.stdout + res.stderr, file=sys.stderr)
@@ -206,23 +336,21 @@ def main() -> int:
         line = res.stdout.strip().splitlines()[-1]
         print(f"[{side}] {line}")
         runs[side].append(json.loads(line))
-    print(f"kernel_ab: device {runs['this'][0]['device']}; median ms per call "
-          "(graph replay / eager loop), other → this")
-    for kind in ("gram", "khat"):
-        for shape in runs["this"][0][kind]:
-            cell = {}
-            for side in ("other", "this"):
-                for how in ("graph", "eager"):
-                    xs = [r[kind][shape][how] for r in runs[side]
-                          if r[kind][shape][how] is not None]
-                    cell[side, how] = float(np.median(xs)) if xs else None
-            fmt = lambda x: "n/a" if x is None else f"{x:.5f}"   # noqa: E731
-            extra = runs["this"][0][kind][shape]
-            idx = (f"; index build {extra['index_ms']:.3f} ms, U {extra['n_uniq']}"
-                   if "index_ms" in extra else "")
-            print(f"[ab] {kind} {shape}: graph {fmt(cell['other', 'graph'])} → "
-                  f"{fmt(cell['this', 'graph'])}, eager {fmt(cell['other', 'eager'])} → "
-                  f"{fmt(cell['this', 'eager'])}{idx}")
+    print(f"kernel_ab: device {runs['this'][0]['device']}; median ms per call, "
+          "other → this")
+    fmt = lambda x: "n/a" if x is None else f"{x:.5f}"   # noqa: E731
+    for kind in kernels:
+        for shape, extra in runs["this"][0][kind].items():
+            hows = ("graph", "eager", "prof") if "prof" in extra else ("graph", "eager")
+            line = ", ".join(
+                f"{how} {fmt(_median(runs['other'], kind, shape, how))} → "
+                f"{fmt(_median(runs['this'], kind, shape, how))}" for how in hows)
+            if "index_ms" in extra:
+                line += f"; index build {extra['index_ms']:.3f} ms, U {extra['n_uniq']}"
+            if "bound_ms" in extra:
+                line += (f"; bound {extra['bound_ms']:.5f} ms, {extra['visited']} "
+                         "nodes visited")
+            print(f"[ab] {kind} {shape}: {line}")
     return 0
 
 

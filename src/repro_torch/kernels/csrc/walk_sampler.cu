@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernel src/repro/kernels/walk_sampler/walk_sampler.py:59
 // `walk_sample` (pallas_call at :92, body `_walk_kernel` :39 running
-// ref.walk_block, ref.py:36).  Plain version: repro_torch/kernels/
+// ref.walk_block, ref.py:34).  Plain version: repro_torch/kernels/
 // walk_sampler/ref.py.
 //
 // What bounds it on this card: the bytes it writes.  Every (start node,
@@ -13,10 +13,18 @@
 // neighbour gathers go through L1/L2 (a ring of 10⁶ nodes is 52 MB of
 // adjacency, about the size of L2).
 //
-// Design: one thread per (start node, walker), the l_max+1 steps in
-// registers.  Threads are numbered walker-fastest, so the triples a warp
-// writes at one step lie in one contiguous run of 32·(l_max+1) slots.
-// The uint32 counter hash is native here; it is the hash of rng.py.
+// Design.  One thread per (start node, walker), numbered walker-fastest,
+// the l_max+1 steps in registers.  Slot (m, w, l) of the [M, K] outputs is
+// flat index (m·n_walkers + w)·(l_max+1) + l, so the threads of a block own
+// one contiguous run of nt·(l_max+1) slots.  A thread's deposits go to
+// shared memory first; after one __syncthreads the block writes its run of
+// `cols` and `loads` with 16-byte vector stores (every warp store covers
+// 512 contiguous bytes), and `lens`, which is the slot's step index, straight
+// from registers the same way.  Writing each slot from its walker instead
+// strode a warp's stores 4·(l_max+1) bytes apart, rewriting the same sectors
+// at every step.  Indices are 32-bit while M·K < 2³¹ (10⁷ rows × 144 slots
+// is 1.44·10⁹) and 64-bit beyond; the walker hash's first two rounds depend
+// on (seed, node, walker) only and are computed once per walk.
 //
 // Bit-exactness with the JAX reference: XLA compiles the reference's
 // division by the constant (1 − p_halt) and by n_walkers into
@@ -29,6 +37,8 @@
 #include <stdint.h>
 
 #define MAX_STEPS 64
+#define MAX_THREADS 256
+#define STAGE_SLOTS 6144  // slots a block stages: 48 KB of (col, load) pairs
 
 struct StepWeights {
   float w[MAX_STEPS];
@@ -43,13 +53,17 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   return h;
 }
 
-__device__ __forceinline__ uint32_t counter_bits(uint32_t seed, uint32_t node,
-                                                 uint32_t walker, uint32_t ctr) {
+// The counter hash of rng.py is fmix(prefix(seed, node, walker) ^ ctr·M3);
+// the prefix is the part that does not depend on the counter.
+__device__ __forceinline__ uint32_t hash_prefix(uint32_t seed, uint32_t node,
+                                                uint32_t walker) {
   uint32_t h = seed ^ 0x9E3779B9u;
   h = fmix32(h ^ (node * 0x85EBCA6Bu));
-  h = fmix32(h ^ (walker * 0xC2B2AE35u));
-  h = fmix32(h ^ (ctr * 0x27D4EB2Fu));
-  return h;
+  return fmix32(h ^ (walker * 0xC2B2AE35u));
+}
+
+__device__ __forceinline__ uint32_t hash_ctr(uint32_t prefix, uint32_t ctr) {
+  return fmix32(prefix ^ (ctr * 0x27D4EB2Fu));
 }
 
 __device__ __forceinline__ float to_uniform(uint32_t bits) {
@@ -59,60 +73,96 @@ __device__ __forceinline__ float to_uniform(uint32_t bits) {
 
 enum Scheme { IID = 0, ANTITHETIC = 1, QMC = 2, GRFSPP = 3 };
 
-__device__ __forceinline__ float halt_uniform(int scheme, uint32_t seed,
-                                              uint32_t node, uint32_t walker,
-                                              uint32_t ctr) {
-  if (scheme == ANTITHETIC) {
-    float u = to_uniform(counter_bits(seed, node, walker & 0xFFFFFFFEu, ctr));
-    return (walker & 1u) ? 1.0f - u : u;
-  }
-  if (scheme == QMC) {
-    uint32_t shift = counter_bits(seed, node, 0xFFFFFFFFu, ctr);
-    return to_uniform(__brev(walker) ^ shift);
-  }
-  return to_uniform(counter_bits(seed, node, walker, ctr));
-}
-
-__global__ void walk_sample_kernel(
+template <typename Idx>
+__global__ void __launch_bounds__(MAX_THREADS) walk_sample_kernel(
     const int* __restrict__ nbr, const float* __restrict__ wgt,
     const int* __restrict__ deg, const int* __restrict__ nodes,
     int* __restrict__ cols, float* __restrict__ loads, int* __restrict__ lens,
-    long long m_rows, int max_deg, int n_walkers, int l_max, uint32_t seed,
+    Idx walks, int max_deg, int n_walkers, int steps, uint32_t seed,
     int scheme, int reweight, float inv_c, float p_halt, float inv_n,
     StepWeights sw) {
-  long long tid = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (tid >= m_rows * n_walkers) return;
-  const long long m = tid / n_walkers;
-  const uint32_t walker = (uint32_t)(tid - m * n_walkers);
-  const int steps = l_max + 1;
-  // Slot of (m, walker, 0) is m·K + walker·steps = tid·steps.
-  const long long base = tid * steps;
-  const int start = nodes[m];
-  const uint32_t node_u = (uint32_t)start;
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int nt = blockDim.x;
+  int* cs = reinterpret_cast<int*>(smem);     // [nt · steps] cols
+  float* ls = reinterpret_cast<float*>(cs + nt * steps);  // loads
+  const Idx w0 = (Idx)blockIdx.x * (Idx)nt;   // first walk of the block
+  const Idx left = walks - w0;
+  const int nvalid = left < (Idx)nt ? (int)left : nt;
 
-  int cur = start;
-  float load = 1.0f, alive = 1.0f;
-  for (int step = 0; step < steps; ++step) {
-    cols[base + step] = cur;
-    lens[base + step] = step;
-    float dep = load * alive;
-    if (scheme == GRFSPP) dep = dep * sw.w[step];
-    loads[base + step] = dep * inv_n;
+  if ((int)threadIdx.x < nvalid) {
+    const Idx tid = w0 + threadIdx.x;
+    const Idx m = tid / (Idx)n_walkers;
+    const uint32_t walker = (uint32_t)(tid - m * (Idx)n_walkers);
+    const int start = nodes[m];
+    const uint32_t node_u = (uint32_t)start;
+    const uint32_t pre_move = hash_prefix(seed, node_u, walker);
+    uint32_t pre_halt = pre_move;
+    if (scheme == ANTITHETIC) pre_halt = hash_prefix(seed, node_u, walker & 0xFFFFFFFEu);
+    if (scheme == QMC) pre_halt = hash_prefix(seed, node_u, 0xFFFFFFFFu);
+    const uint32_t qmc_point = __brev(walker);
+    int* my_c = cs + threadIdx.x * steps;
+    float* my_l = ls + threadIdx.x * steps;
 
-    const float u = to_uniform(counter_bits(seed, node_u, walker, 2u * step));
-    const int d = deg[cur];
-    // Degree 0: choice 0 lands on the zero padding, as in ref.py.
-    const int choice = min((int)(u * (float)d), max(d - 1, 0));
-    const long long flat = (long long)cur * max_deg + choice;
-    const int nxt = nbr[flat];
-    const float w = wgt[flat];
-    load = reweight ? ((load * (float)d) * inv_c) * w : load * w;
-    if (scheme != GRFSPP) {
-      const float uh = halt_uniform(scheme, seed, node_u, walker, 2u * step + 1u);
-      alive = alive * (uh >= p_halt ? 1.0f : 0.0f);
+    int cur = start;
+    float load = 1.0f, alive = 1.0f;
+    for (int step = 0; step < steps; ++step) {
+      my_c[step] = cur;
+      float dep = load * alive;
+      if (scheme == GRFSPP) dep = dep * sw.w[step];
+      my_l[step] = dep * inv_n;
+
+      const float u = to_uniform(hash_ctr(pre_move, 2u * step));
+      const int d = deg[cur];
+      // Degree 0: choice 0 lands on the zero padding, as in ref.py.
+      const int choice = min((int)(u * (float)d), max(d - 1, 0));
+      // The adjacency is N·max_deg entries, counted apart from M·K.
+      const size_t flat = (size_t)(unsigned int)cur * (unsigned int)max_deg + choice;
+      const int nxt = nbr[flat];
+      const float w = wgt[flat];
+      load = reweight ? ((load * (float)d) * inv_c) * w : load * w;
+      if (scheme != GRFSPP) {
+        const uint32_t hb = hash_ctr(pre_halt, 2u * step + 1u);
+        float uh;
+        if (scheme == ANTITHETIC) {
+          const float ua = to_uniform(hb);
+          uh = (walker & 1u) ? 1.0f - ua : ua;
+        } else if (scheme == QMC) {
+          uh = to_uniform(qmc_point ^ hb);
+        } else {
+          uh = to_uniform(hb);
+        }
+        alive = alive * (uh >= p_halt ? 1.0f : 0.0f);
+      }
+      alive = alive * (d > 0 ? 1.0f : 0.0f);
+      cur = nxt;
     }
-    alive = alive * (d > 0 ? 1.0f : 0.0f);
-    cur = nxt;
+  }
+  __syncthreads();
+
+  // The block's run of slots: [w0·steps, (w0 + nvalid)·steps).  w0·steps is
+  // a multiple of 32 slots (nt is a multiple of 32), so the run starts on a
+  // 16-byte boundary of each output.
+  const Idx base = w0 * (Idx)steps;
+  const int n = nvalid * steps;
+  const int n4 = n >> 2;
+  int4* c4 = reinterpret_cast<int4*>(cols + base);
+  float4* l4 = reinterpret_cast<float4*>(loads + base);
+  int4* s4 = reinterpret_cast<int4*>(lens + base);
+  const int4* cs4 = reinterpret_cast<const int4*>(cs);
+  const float4* ls4 = reinterpret_cast<const float4*>(ls);
+  for (int q = threadIdx.x; q < n4; q += nt) {
+    c4[q] = cs4[q];
+    l4[q] = ls4[q];
+    const int l0 = (4 * q) % steps;
+    const int l1 = l0 + 1 == steps ? 0 : l0 + 1;
+    const int l2 = l1 + 1 == steps ? 0 : l1 + 1;
+    const int l3 = l2 + 1 == steps ? 0 : l2 + 1;
+    s4[q] = make_int4(l0, l1, l2, l3);
+  }
+  for (int e = 4 * n4 + threadIdx.x; e < n; e += nt) {
+    cols[base + e] = cs[e];
+    loads[base + e] = ls[e];
+    lens[base + e] = e % steps;
   }
 }
 
@@ -122,23 +172,45 @@ const char* repro_cuda_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);
 }
 
+// Threads per block for walks of `steps` slots: 256, or fewer (a multiple
+// of 32) so that the staged slots fit in 48 KB of shared memory.
+static int walk_sample_threads(int steps) {
+  int nt = (STAGE_SLOTS / steps) & ~31;
+  return nt < MAX_THREADS ? nt : MAX_THREADS;
+}
+
+// cols, loads, lens: 16-byte aligned [m_rows, n_walkers·(l_max+1)].
 int walk_sample_launch(const void* nbr, const void* wgt, const void* deg,
                        const void* nodes, void* cols, void* loads, void* lens,
                        long long m_rows, int max_deg, int n_walkers, int l_max,
                        unsigned int seed, int scheme, int reweight, float inv_c,
                        float p_halt, float inv_n, const float* step_weights,
                        void* stream) {
-  if (l_max + 1 > MAX_STEPS) return (int)cudaErrorInvalidValue;
+  if (l_max + 1 > MAX_STEPS || n_walkers < 1) return (int)cudaErrorInvalidValue;
+  if (((uintptr_t)cols | (uintptr_t)loads | (uintptr_t)lens) & 15)
+    return (int)cudaErrorMisalignedAddress;
   StepWeights sw;
   for (int i = 0; i < MAX_STEPS; ++i) sw.w[i] = i <= l_max ? step_weights[i] : 0.0f;
-  const long long total = m_rows * n_walkers;
-  if (total == 0) return (int)cudaSuccess;
-  const int threads = 256;
-  const long long blocks = (total + threads - 1) / threads;
-  walk_sample_kernel<<<(unsigned int)blocks, threads, 0, (cudaStream_t)stream>>>(
-      (const int*)nbr, (const float*)wgt, (const int*)deg, (const int*)nodes,
-      (int*)cols, (float*)loads, (int*)lens, m_rows, max_deg, n_walkers, l_max,
-      seed, scheme, reweight, inv_c, p_halt, inv_n, sw);
+  const long long walks = m_rows * n_walkers;
+  if (walks == 0) return (int)cudaSuccess;
+  const int steps = l_max + 1;
+  const int nt = walk_sample_threads(steps);
+  const long long blocks = (walks + nt - 1) / nt;
+  if (blocks > 0x7FFFFFFFLL) return (int)cudaErrorInvalidValue;
+  const size_t smem = (size_t)nt * steps * 8;
+  cudaStream_t st = (cudaStream_t)stream;
+  if (walks * steps < 0x7FFFFFFFLL) {
+    walk_sample_kernel<unsigned int><<<(unsigned int)blocks, nt, smem, st>>>(
+        (const int*)nbr, (const float*)wgt, (const int*)deg, (const int*)nodes,
+        (int*)cols, (float*)loads, (int*)lens, (unsigned int)walks, max_deg,
+        n_walkers, steps, seed, scheme, reweight, inv_c, p_halt, inv_n, sw);
+  } else {
+    walk_sample_kernel<unsigned long long><<<(unsigned int)blocks, nt, smem, st>>>(
+        (const int*)nbr, (const float*)wgt, (const int*)deg, (const int*)nodes,
+        (int*)cols, (float*)loads, (int*)lens, (unsigned long long)walks,
+        max_deg, n_walkers, steps, seed, scheme, reweight, inv_c, p_halt,
+        inv_n, sw);
+  }
   return (int)cudaGetLastError();
 }
 

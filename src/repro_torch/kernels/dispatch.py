@@ -98,7 +98,16 @@ def launch_counts() -> dict[str, int]:
     return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
+def launch_shapes() -> dict[str, dict[tuple, int]]:
+    """Launches by shape since the last reset: ``walk_sampler`` by (M, K),
+    ``woodbury_apply`` by (T, r, columns)."""
+    return {"walk_sampler": dict(walk_ops.BY_SHAPE),
+            "woodbury_apply": dict(wood_ops.BY_SHAPE)}
+
+
 def reset_launch_counts() -> None:
     for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
+    walk_ops.BY_SHAPE.clear()
+    wood_ops.BY_SHAPE.clear()

@@ -8,6 +8,7 @@ differentiability w.r.t. the modulation lives in ``core.features``.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -15,8 +16,10 @@ from .. import build
 from .ref import step_constants, walk_sample_ref
 from .rng import SCHEMES
 
-# Kernel launches since the last reset (chip_smoke.py reads it).
+# Kernel launches since the last reset (chip_smoke.py reads it), and the
+# same launches by output shape (M, K).
 LAUNCHES = {"walk_sampler": 0}
+BY_SHAPE: Counter = Counter()
 
 MAX_STEPS = 64  # StepWeights capacity in walk_sampler.cu
 
@@ -72,4 +75,5 @@ def walk_sample(
            int(seed), SCHEMES.index(scheme), int(bool(reweight)),
            float(inv_c), float(p32), float(inv_n), sw, build.stream(dev))
     LAUNCHES[name] += 1
+    BY_SHAPE[(m, k)] += 1
     return cols, loads, lens

@@ -191,6 +191,23 @@ def test_launch_counters_reset():
     assert all(c == 0 for c in dispatch.launch_counts().values())
 
 
+def test_launch_shapes_reset_and_cpu_calls_record_none():
+    """walk_sampler's launches by (M, K) and woodbury_apply's by (T, r, R)
+    reset with the counts, and a CPU call (the plain version) records no
+    launch of either."""
+    from repro_torch.graphs import generators
+
+    dispatch.reset_launch_counts()
+    assert dispatch.launch_shapes() == {"walk_sampler": {}, "woodbury_apply": {}}
+    g = generators.ring(50, k=2, device="cpu")
+    dispatch.walk_sample(g.neighbors, g.weights, g.deg,
+                         torch.arange(7, dtype=torch.int32), 3,
+                         n_walkers=2, p_halt=0.3, l_max=2)
+    b = torch.ones((5, 2))
+    dispatch.woodbury_apply(b, torch.ones(5), torch.eye(2), torch.ones(5))
+    assert dispatch.launch_shapes() == {"walk_sampler": {}, "woodbury_apply": {}}
+
+
 def test_cuda_sources_name_the_tpu_kernel_they_replace():
     """Each kernel source carries its note: the TPU kernel it replaces."""
     notes = {
@@ -274,6 +291,40 @@ def test_gpu_walk_kernel_matches_plain(cuda, scheme):
     assert dispatch.launch_counts()["walk_sampler"] == before + 1
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("scheme", ["iid", "antithetic", "qmc", "grfspp"])
+@pytest.mark.parametrize("n_walkers", [1, 3, 8, 16])
+@pytest.mark.parametrize("l_max", [0, 5, 8, 63])
+def test_gpu_walk_kernel_tiles_match_plain(cuda, scheme, n_walkers, l_max):
+    """The redesigned kernel's tiles (a block stages the slots of 256
+    consecutive walks, fewer past 24 steps, and writes them out as 16-byte
+    vectors with a scalar tail): M = 1, 31, 33 and one block's rows + 1,
+    a non-contiguous node list holding a degree-0 node, reweight off; cols,
+    loads and lens bit-equal to the plain version, one launch per call,
+    counted under its (M, K)."""
+    from repro_torch.graphs import formats
+    from repro_torch.kernels.walk_sampler import ops as wops
+    from repro_torch.kernels.walk_sampler import ref as wref
+
+    idx = np.arange(600)
+    edges = np.concatenate([np.stack([idx, (idx + o) % 600], 1) for o in (1, 5, 17)])
+    g = formats.from_edges(edges, 601, device=cuda)        # node 600 isolated
+    order = np.random.default_rng(l_max + 7 * n_walkers).permutation(601)
+    nodes = torch.from_numpy(order.astype(np.int32)).to(cuda)
+    per_block = min(256, (6144 // (l_max + 1)) & ~31) // n_walkers
+    kw = dict(n_walkers=n_walkers, p_halt=0.2, l_max=l_max, reweight=False,
+              scheme=scheme)
+    for m in sorted({1, 31, 33, per_block + 1}):
+        sub = nodes[:m]
+        dispatch.reset_launch_counts()
+        got = wops.walk_sample(g.neighbors, g.weights, g.deg, sub, 2**31 + 3, **kw)
+        want = wref.walk_sample_ref(g.neighbors, g.weights, g.deg, sub, 2**31 + 3, **kw)
+        k = n_walkers * (l_max + 1)
+        assert dispatch.launch_shapes()["walk_sampler"] == {(m, k): 1}
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
 
 
 @pytest.mark.gpu

@@ -164,6 +164,30 @@ def test_isolated_node_matches_jax(isolated, scheme):
     assert np.all(t[1][0].reshape(4, 5)[:, 1:] == 0)
 
 
+@pytest.mark.parametrize("scheme", SCHEMES)
+@pytest.mark.parametrize("n_walkers,l_max", [(1, 0), (3, 8), (16, 8), (1, 24)])
+def test_kernel_tile_shapes_match_jax(isolated, scheme, n_walkers, l_max):
+    """The shapes at the CUDA kernel's tile edges (one row, 31 and 33 rows,
+    1..16 walkers, l_max 0..24: 25 steps is where a block shrinks below 256
+    walks), a non-contiguous node list with the degree-0 node in it,
+    reweight off: the plain version, which the kernel is held to bit for
+    bit on the card, against the jitted JAX reference.  A node's walks
+    depend on its id only, so the first m rows of the 33-row reference are
+    the reference of m rows.  (Past ~60 steps without reweighting the loads
+    reach float32's subnormals, which XLA's CPU code flushes to zero.)"""
+    nodes = np.array([40, 7, 3, 39, 0, 40, 22, 11, 5, 30, 2, 19, 36, 1, 28, 9,
+                      40, 13, 25, 34, 6, 17, 38, 4, 21, 10, 33, 15, 27, 8, 31,
+                      12, 24])
+    kw = dict(n_walkers=n_walkers, p_halt=0.15, l_max=l_max, reweight=False,
+              scheme=scheme)
+    j = _jax_walks(isolated, nodes, 4242, **kw)
+    for m in (1, 31, 33):
+        t = _torch_walks(isolated, nodes[:m], 4242, **kw)
+        for a, b in zip(t, j):
+            np.testing.assert_array_equal(a, b[:m])   # cols, loads, lens bit-equal
+        assert np.all(t[1][0].reshape(n_walkers, l_max + 1)[:, 1:] == 0)
+
+
 def test_pallas_interpret_walk_case(grid100):
     """One small case against the Pallas kernel itself (interpret mode)."""
     nodes = np.arange(3, 40)

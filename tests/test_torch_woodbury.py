@@ -150,6 +150,145 @@ def test_dispatch_casts_to_f32_and_stays_differentiable():
     close(d_b, want)
 
 
+def emulate_kernel(b, dinv, einv, v):
+    """The kernel's arithmetic in its fixed order, in float32 plain PyTorch
+    (separate multiplies and adds where the kernel fuses them), for one
+    launch (R ≤ launch_cols(r)), with ops.plan's blocks and tiles.
+    Partials: block p takes ``rows`` rows in tiles of ``tile``; in a tile,
+    row i goes to group i mod G (G = 512 / ⌈r⌉₃₂), each group's sum runs
+    over the tiles in order, and the groups are added in order.  u: the
+    partials in ``groups`` runs of consecutive partials, each run summed in
+    order from zero, the runs added in order; ``groups`` is 512 over the
+    entries of u that a block sums (all of u where every block forms all of
+    it, else its ⌈r/16⌉-row slice).  A row of s = E⁻¹u: 4 lane sums over
+    quarters of k, each from a lane-dependent offset round its quarter, and
+    a butterfly.  A row of out: 4 lane sums over j ≡ q (mod 4) and a
+    butterfly."""
+    t, r = b.shape
+    v2 = v.reshape(t, -1)
+    cb = v2.shape[1]
+    w = dinv[:, None] * v2
+    rows, tile, n_p, *_ = ops.plan(t, r, cb)
+    groups = 512 // min(-(-r // 32) * 32, 512)
+    parts = []
+    for blk in range(n_p):
+        i0 = blk * rows
+        nr = max(0, min(t, i0 + rows) - i0)
+        acc = torch.zeros((groups, r, cb))
+        for k0 in range(0, nr, tile):
+            for i in range(min(tile, nr - k0)):
+                g = i % groups
+                acc[g] = acc[g] + b[i0 + k0 + i][:, None] * w[i0 + k0 + i][None, :]
+        part = acc[0]
+        for g in range(1, groups):
+            part = part + acc[g]
+        parts.append(part)
+
+    full = r * cb <= 256 and r * r <= 16384
+    js, kc = -(-r // 16), -(-r // 4)
+    u = torch.zeros((r, cb))
+    for j in range(r):
+        ent = (r if full else min(js, r - j // js * js)) * cb
+        runs = max(1, min(n_p, 512 // ent))
+        per = -(-n_p // runs)
+        sums = []
+        for q in range(runs):
+            acc = torch.zeros(cb)
+            for p_ in range(q * per, min(n_p, (q + 1) * per)):
+                acc = acc + parts[p_][j]
+            sums.append(acc)
+        u[j] = sums[0]
+        for x in sums[1:]:
+            u[j] = u[j] + x
+
+    def butterfly(lanes, offs):
+        lanes = list(lanes)
+        for off in offs:
+            lanes = [lanes[i] + lanes[i ^ off] for i in range(len(lanes))]
+        return lanes[0]
+
+    s = torch.zeros_like(u)
+    for j in range(r):
+        quarters = []
+        for ch in range(4):
+            k0 = min(r, ch * kc)
+            n = min(r, k0 + kc) - k0
+            kk = (ch * 8 + (j if full else j % js) % 8) % n if n else 0
+            acc = torch.zeros(cb)
+            for _ in range(n):
+                acc = acc + einv[j, k0 + kk] * u[k0 + kk]
+                kk = (kk + 1) % n
+            quarters.append(acc)
+        s[j] = butterfly(quarters, (1, 2))
+    out = torch.empty_like(v2)
+    for i in range(t):
+        lanes = [torch.zeros(cb) for _ in range(4)]
+        for j in range(r):
+            lanes[j % 4] = lanes[j % 4] + b[i, j] * s[j]
+        out[i] = w[i] - dinv[i] * butterfly(lanes, (1, 2))
+    return out.reshape(v.shape)
+
+
+@pytest.mark.parametrize("case", [(48, 12, 3, "vector"), (37, 1, None, "masked"),
+                                  (70, 40, 9, "scalar"), (100, 64, 2, "vector")])
+def test_kernel_summation_order_matches_jax_interpret(jx, case):
+    """The kernel's fixed summation order, emulated, against the Pallas
+    kernel in interpret mode, within 1e-5 of scale: each block of u formed
+    whole (r·R ≤ 256) and in 16 slices, one and several partials."""
+    jax, jnp, jwood = jx
+    arrs = pieces(*case, seed=7)
+    got = emulate_kernel(*map(torch.from_numpy, arrs))
+    close(got, jwood.woodbury_apply(*map(jnp.asarray, arrs), interpret=True))
+
+
+def test_kernel_summation_order_across_tiles_matches_jax_interpret(jx):
+    """As above at T = 2100: 64 partial blocks of 33 rows, each streamed as
+    a tile of 32 rows and one of 1, and u summed in runs of partials."""
+    jax, jnp, jwood = jx
+    arrs = pieces(2100, 20, 4, "masked", seed=11)
+    assert ops.plan(2100, 20, 4)[:3] == (33, 32, 64)
+    got = emulate_kernel(*map(torch.from_numpy, arrs))
+    close(got, jwood.woodbury_apply(*map(jnp.asarray, arrs), interpret=True))
+
+
+def test_launch_cols_and_plan():
+    """Columns per launch, and the plan at the shapes the repo runs."""
+    assert [ops.launch_cols(r) for r in (1, 128, 512, 513, 1024, 8192, 8447)] == \
+        [16, 16, 16, 15, 8, 1, 1]
+    # The solvers' CG shape: 64 blocks of 63 rows, 4 clusters of 63 rows a
+    # block, one [128] partial each.
+    assert ops.plan(4000, 128, 1) == (63, 32, 64, 4, 63, 64 * 128)
+    assert ops.plan(4000, 128, 9) == (63, 32, 64, 4, 63, 64 * 128 * 12)
+    assert ops.plan(565, 128, 1) == (32, 32, 18, 1, 36, 18 * 128)
+    assert ops.plan(1, 8447, 1)[:4] == (32, 2, 1, 1)
+
+
+@pytest.mark.parametrize("r", [1, 37, 64, 128, 256, 263, 1024, 8192, 8447])
+def test_plan_is_a_pure_function_that_fits(r):
+    """For every shape the plan covers all T rows within the card's shared
+    memory: at least one row of B a tile, partial blocks of at least
+    MAX_TILE rows, at most MAX_PARTIALS of them past MAX_PARTIALS·MAX_TILE
+    rows, clusters of 16 blocks over all rows, and one [r, columns] partial
+    per block in the scratch.  The combine buffer holds a thread's row or,
+    past 512 rows of u a block (r > 8192), a row of u each."""
+    for cw in sorted({1, 9, ops.launch_cols(r)}):
+        if cw > ops.launch_cols(r):
+            continue
+        p = ops._cbp(cw)
+        for t in (1, 16, 37, 500, 4000, 4992, 5008, 6368, 13000, 100000):
+            got = ops.plan(t, r, cw)
+            assert got == ops.plan.__wrapped__(t, r, cw)
+            rows, tile, parts, clus, rows_f, need = got
+            assert 1 <= tile <= ops.MAX_TILE
+            assert ops._layout_floats(2 * tile, r, cw) <= ops.SMEM_FLOATS
+            assert parts * rows >= t > (parts - 1) * rows
+            assert rows >= ops.MAX_TILE and parts <= ops.MAX_PARTIALS
+            assert clus * 16 * rows_f >= t and 1 <= clus <= ops.MAX_CLUSTERS
+            assert need == parts * r * p
+            js = -(-r // 16)
+            assert js * cw <= max(js, ops.THREADS) * p
+
+
 # --------------------------------------------------------------------------
 # On the card.
 # --------------------------------------------------------------------------
@@ -198,8 +337,90 @@ def test_gpu_woodbury_refuses_bad_inputs(cuda):
         ops.woodbury_apply_raw(b, dinv, einv[:-1].contiguous(), v)
     with pytest.raises(ValueError, match="CPU or on one CUDA"):
         ops.woodbury_apply_raw(b, dinv.cpu(), einv, v)
-    # The kernel's own scratch rule: 32-row tiles up to r = 263, fewer past it.
-    assert ops._scratch_floats(4000, 128, 1) == (125 + 2) * 128
-    assert ops._scratch_floats(100, 1000, 1) == (13 + 2) * 1000
-    assert ops._scratch_floats(10, 8448, 1) == -1
-    assert ops._scratch_floats(10, 8, 65) == -1
+    # The kernel's limits: rank 1..MAX_RANK; a wider v runs as several launches.
+    big = torch.zeros((4, ops.MAX_RANK + 1), device=cuda)
+    with pytest.raises(ValueError, match="rank"):
+        ops.woodbury_apply_raw(big, dinv[:4].contiguous(),
+                               torch.zeros((ops.MAX_RANK + 1,) * 2, device=cuda),
+                               v[:4].contiguous())
+    assert ops.plan(4000, 128, 1)[5] == 64 * 128
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("t", [1, 37, 4000])
+@pytest.mark.parametrize("r", [1, 37, 128, 256, 263])
+@pytest.mark.parametrize("cols", [1, 9, 16, 64, 65])
+def test_gpu_woodbury_matches_plain_and_repeats(cuda, t, r, cols):
+    """Within 1e-5 of the plain version's scale, bit-equal over two calls,
+    one launch per launch_cols(r) columns, counted under (T, r, columns).
+    B is scaled so that D⁻¹-weighted rows have unit norm: with T < r and
+    unit entries, out = w − D⁻¹Bs cancels w to ~1/(1 + 20·r), and float32
+    is then far from float64 whatever the summation order (the next test
+    holds the kernel to float64 on such draws)."""
+    b, dinv, _, v = pieces(t, r, None if cols == 1 else cols, "vector", seed=8)
+    b = (b / np.sqrt(r * dinv.max())).astype(np.float32)
+    e = np.eye(r) + b.T.astype(np.float64) @ (dinv[:, None] * b)
+    einv = np.linalg.inv(e).astype(np.float32)
+    arrs = [torch.from_numpy(a).to(cuda) for a in (b, dinv, einv, v)]
+    dispatch.reset_launch_counts()
+    got = ops.woodbury_apply_raw(*arrs)
+    step = ops.launch_cols(r)
+    want_shapes = {}
+    for c0 in range(0, cols, step):
+        key = (t, r, min(step, cols - c0))
+        want_shapes[key] = want_shapes.get(key, 0) + 1
+    assert dispatch.launch_shapes()["woodbury_apply"] == want_shapes
+    close(got, ref.woodbury_apply_ref(*arrs))
+    assert torch.equal(got, ops.woodbury_apply_raw(*arrs))
+
+
+def _rel64(x, want64):
+    return float((x.double() - want64).abs().max() / want64.abs().max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", [(1, 64, 16, "masked"), (1, 263, 65, "masked"),
+                                  (37, 128, 9, "masked"), (37, 263, 65, "vector")])
+@pytest.mark.parametrize("kind", ["random einv", "unit b"])
+def test_gpu_woodbury_within_float32s_own_error(cuda, case, kind):
+    """Draws on which float32 itself is far from float64: a random E⁻¹
+    unrelated to B (rows of B of unit norm; D⁻¹ of the case), and T < r
+    with unit-scale B, E⁻¹ = (I + BᵀD⁻¹B)⁻¹ and D⁻¹ near 1, where out
+    cancels w to about 1/(1 + r).  Against the float64 result, the kernel's
+    mean error over 8 draws is at most twice the plain float32 version's
+    plus 1e-5 of scale (two float32 summation orders part by 2-3x on single
+    draws), and two calls are bit-equal."""
+    t, r, cols, noise = case
+    k64, p64 = [], []
+    for seed in range(21, 29):
+        b, dinv, einv, v = pieces(t, r, cols, "vector" if kind == "unit b" else noise,
+                                  seed=seed)
+        if kind == "random einv":
+            rng = np.random.default_rng(seed + 100)
+            b = (b / np.sqrt(r)).astype(np.float32)
+            einv = (rng.standard_normal((r, r)) / np.sqrt(r)).astype(np.float32)
+        arrs = [torch.from_numpy(a).to(cuda) for a in (b, dinv, einv, v)]
+        want64 = ref.woodbury_apply_ref(*(x.double() for x in arrs))
+        got = ops.woodbury_apply_raw(*arrs)
+        assert torch.equal(got, ops.woodbury_apply_raw(*arrs))
+        k64.append(_rel64(got, want64))
+        p64.append(_rel64(ref.woodbury_apply_ref(*arrs), want64))
+    assert np.mean(k64) <= 2 * np.mean(p64) + TOL
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("r", [8192, 8447])
+def test_gpu_woodbury_top_ranks(cuda, r):
+    """The largest ranks the kernel takes (one column a launch, E⁻¹ read
+    from L2, past 512 rows of u a block at r = 8447): within 1e-5 of the
+    plain version's scale, bit-equal over two calls."""
+    gen = torch.Generator(device=cuda).manual_seed(r)
+    t = 37
+    b = torch.randn((t, r), generator=gen, device=cuda) / r ** 0.5
+    dinv = torch.full((t,), 20.0, device=cuda)
+    einv = torch.eye(r, device=cuda) * 0.5 + \
+        torch.randn((r, r), generator=gen, device=cuda) * (0.01 / r ** 0.5)
+    v = torch.randn((t, 2), generator=gen, device=cuda)
+    got = ops.woodbury_apply_raw(b, dinv, einv, v)
+    close(got, ref.woodbury_apply_ref(b, dinv, einv, v))
+    assert torch.equal(got, ops.woodbury_apply_raw(b, dinv, einv, v))
