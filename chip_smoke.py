@@ -12,8 +12,8 @@ non-zero exit and no result line):
                kernels (flash_attention's tensor-core instance, rmsnorm's
                16-byte instance, khat_fused's segment and gather kernels,
                gram_block's aggregate and probe kernels, the walk sampler,
-               woodbury_apply's partials and finish kernels) must spill
-               nothing.
+               ell_spmv's row kernel, woodbury_apply's partials and finish
+               kernels) must spill nothing.
   2. parity    each kernel against its plain PyTorch version on the card at
                ragged shapes (1-D and R in {3, 16}, duplicate columns, zero
                slots, every walk scheme, an isolated node, bf16 and mixed
@@ -21,8 +21,12 @@ non-zero exit and no result line):
                the column payload never touches, an empty column payload,
                gram_block at M_r = 1, K_r != K_c, every main-path shape and
                a side of 1 100 000 rows; khat_fused and gram_block bit-equal
-               over two calls, the walk sampler at M in {1, 31, 33, one
-               block + 1}, 1..16 walkers and l_max 0..63,
+               over two calls; ell_spmv's instances at R in {1-D, 1, 2, 3,
+               4, 16, 17, 64} x K in {1, 7, 48, 144} x M in {0, 1, 33,
+               65537}, on walk payloads of a ring and a preferential-
+               attachment graph, and on a u and a payload off 16-byte
+               alignment, bit-equal over two calls; the walk sampler at M
+               in {1, 31, 33, one block + 1}, 1..16 walkers and l_max 0..63,
                woodbury_apply over T in {1, 37, 4000}, r in 1..263, R in
                1-D..65 and scalar / vector / masked D⁻¹, bit-equal over two
                calls, and on draws where float32 is far from float64
@@ -94,7 +98,13 @@ non-zero exit and no result line):
                each within 1e-3.
  10. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
-               (walk_sampler at the monolithic trace, one chunk of 65536
+               (ell_spmv at the prior draw [10⁶, 48] and one chunk each of
+               [65536, 48] and [65536, 144], u [10⁶, 16], and the K = 144
+               chunk with a 1-D u, as graph replays beside eager loops,
+               bit-equal over two calls, against torch.sparse.mm, the
+               bound counting the rows of u that the non-zero slots touch;
+               ell_spmv_t as graph replays too;
+               walk_sampler at the monolithic trace, one chunk of 65536
                rows and the wide K = 144 trace, bit-equal to the plain
                version for every scheme at each, the bound counting the
                adjacency rows of the nodes the walks visit;
@@ -119,8 +129,9 @@ non-zero exit and no result line):
 Each path (main, fit, serving, each BO loop, solvers, lm) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
 runs was never launched; a kernel's `launches` in the result line is the
-sum over those runs.  walk_sampler's launches are also printed by (M, K)
-and woodbury_apply's by (T, r, R), per path and summed.
+sum over those runs.  walk_sampler's launches are also printed by (M, K),
+woodbury_apply's by (T, r, R) and ell_spmv's and ell_spmv_t's by (M, K, R),
+per path and summed.
 
 The last line is {"ok": true, "device": {...}}.  Without a CUDA card, or
 without the repository beside this file, it exits non-zero and prints no
@@ -194,6 +205,10 @@ SOLVE = dict(n_nodes=1_000_000, ring_k=3, n_walkers=16, p_halt=0.1, l_max=8,
              beta=4.0, sigma_f=25.0, sigma_n2=1e-2, tol=1e-6, max_iters=3000,
              rank=128, lml_probes=32, slq_iters=64, fit_steps=5, fit_probes=8,
              n_samples=16, chunk=65536)
+# ell_spmv's parity widths R (None: a 1-D u), which take both instances at
+# several lane and part counts, and its parity row counts.
+SPMV_WIDTHS = (None, 1, 2, 3, 4, 16, 17, 64)
+SPMV_ROWS = (0, 1, 33, 65537)
 # woodbury_apply's timed shapes at T = 4000: ranks and RHS widths.
 WOOD_RANKS = (64, 128, 256)
 WOOD_COLS = (1, 9, 16)
@@ -257,12 +272,13 @@ REPLACES = {
 
 # Kernel functions of the redesigned kernels, by library, whose ptxas spills
 # are gated at 0: flash_attention's tensor-core instance, rmsnorm's 16-byte
-# instance, khat_fused's two kernels, gram_block's two, the walk sampler and
-# woodbury_apply's two.
+# instance, khat_fused's two kernels, gram_block's two, the walk sampler,
+# ell_spmv's row kernel and woodbury_apply's two.
 REDESIGNED = {"flash_attention": ("flash_fwd_tc",), "rmsnorm": ("rmsnorm_vec",),
               "khat_fused": ("khat_segments", "khat_gather"),
               "gram_block": ("gram_aggregate", "gram_probe"),
               "walk_sampler": ("walk_sample_kernel",),
+              "ell_spmv": ("ell_spmv_rows",),
               "woodbury_apply": ("wb_partials", "wb_finish")}
 
 
@@ -397,7 +413,77 @@ def check_kernel_cases(dev) -> None:
                     cases += 2
     print("[parity] ell_spmv, ell_spmv_t, khat_fused (f32 + bf16) match their "
           f"plain versions within {KERNEL_RTOL:g} of scale in {cases} ragged cases")
+    check_spmv_cases(dev, rng)
     check_khat_index_cases(dev, rng)
+
+
+def check_spmv_cases(dev, rng) -> None:
+    """ell_spmv's instances: R in SPMV_WIDTHS x K in {1, 7, 48, 144} x M in
+    {0, 1, 33, 65537} on random payloads (35 % zero slots), walk payloads
+    of a ring and of a preferential-attachment graph (halted walkers:
+    zero slots on real columns) at K = 48 and 144, and a u and a payload
+    sliced off 16-byte alignment (the scalar instance, 4-byte payload
+    loads); within 1e-5 of scale, two calls bit-equal, one launch a call
+    (none for M = 0)."""
+    import torch
+
+    from repro_torch.core import features, modulation, walks
+    from repro_torch.graphs import generators
+    from repro_torch.kernels.ell_spmv import ops, ref
+
+    t = lambda a: torch.from_numpy(a).to(dev)   # noqa: E731
+
+    def held(label, vals, cols, u):
+        before = ops.LAUNCHES["ell_spmv"]
+        got = ops.ell_spmv_raw(vals, cols, u)
+        again = ops.ell_spmv_raw(vals, cols, u)
+        launched = ops.LAUNCHES["ell_spmv"] - before
+        expect(launched == (2 if got.numel() else 0),
+               f"ell_spmv {label}: {launched} launches for two calls")
+        expect(torch.equal(got, again), f"ell_spmv {label}: two calls differ")
+        _, rel = rel_err(got, ref.ell_spmv_ref(vals, cols, u))
+        expect(rel <= KERNEL_RTOL, f"ell_spmv {label}: rel {rel:.2e}")
+        return rel
+
+    n, cases, worst = 5003, 0, 0.0
+    routes = set()
+    for r in SPMV_WIDTHS:
+        u = t(rng.standard_normal((n,) if r is None else (n, r)).astype(np.float32))
+        for k in (1, 7, 48, 144):
+            for m in SPMV_ROWS:
+                vals, cols = _payload(rng, m, k, n, False, 0.35)
+                worst = max(worst, held(f"m={m} k={k} r={r}", t(vals), t(cols), u))
+                cases += 1
+            routes.add(ops.route(r or 1, True))
+    for kind in ("ring", "barabasi_albert"):
+        g = (generators.ring(4000, k=3, device=dev) if kind == "ring"
+             else generators.barabasi_albert(4000, m=3, seed=1, device=dev))
+        for nw, ph, lm in ((8, 0.2, 5), (16, 0.1, 8)):
+            mod = modulation.diffusion(lm)
+            tr = walks.sample_walks(g, 2024, nw, ph, lm)
+            vals = features.feature_values(tr, mod(mod.init(device=dev))).contiguous()
+            expect(bool((vals == 0).any()), f"ell_spmv {kind}: no halted slots")
+            for r in (None, 1, 16):
+                u = torch.randn((4000,) if r is None else (4000, r), device=dev)
+                worst = max(worst, held(f"{kind} K={vals.shape[1]} r={r}",
+                                        vals, tr.cols, u))
+                cases += 1
+    vals, cols = map(t, _payload(rng, 1000, 48, 777, False, 0.3))
+    for r in (None, 4, 16):
+        width = r or 1
+        flat = torch.randn(777 * width + 1, device=dev)[1:]
+        u = flat if r is None else flat.view(777, r)
+        expect(ops.route(width, ops.aligned(u))[0] == ops.SCALAR,
+               f"ell_spmv: an unaligned u of R = {width} routes to the vector instance")
+        worst = max(worst, held(f"unaligned u r={r}", vals, cols, u))
+        pv = torch.cat([vals.new_zeros(1), vals.reshape(-1)])[1:].view(1000, 48)
+        pc = torch.cat([cols.new_zeros(1), cols.reshape(-1)])[1:].view(1000, 48)
+        worst = max(worst, held(f"unaligned payload r={r}", pv, pc, u))
+        cases += 2
+    print(f"[parity] ell_spmv matches its plain version within {KERNEL_RTOL:g} of "
+          f"scale (worst {worst:.2e}) and repeats bit for bit in {cases} cases: "
+          f"instances {sorted(routes)}, walk payloads of a ring and a "
+          "preferential-attachment graph, unaligned u and payloads")
 
 
 def check_khat_index_cases(dev, rng) -> None:
@@ -968,13 +1054,14 @@ def counts_now() -> dict:
     return dispatch.launch_counts()
 
 
-# walk_sampler's and woodbury_apply's launches by shape, per path.
+# Launches by shape per path (walk_sampler, woodbury_apply, the ELL products).
 PATH_SHAPES: dict = {}
 
 
 def record_shapes(label: str) -> None:
     """Keep and print the launches by shape since the last reset of the
-    counts (walk_sampler by (M, K), woodbury_apply by (T, r, R))."""
+    counts (walk_sampler by (M, K), woodbury_apply by (T, r, R), ell_spmv
+    and ell_spmv_t by (M, K, R))."""
     from repro_torch.kernels import dispatch
 
     PATH_SHAPES[label] = shapes = dispatch.launch_shapes()
@@ -2192,7 +2279,7 @@ def csr(vals, cols, n_cols: int, transpose: bool = False):
 def phase_timing(dev, results: dict) -> list[dict]:
     import torch
 
-    from repro_torch.core import features, linops, walks
+    from repro_torch.core import features, linops, modulation, walks
     from repro_torch.kernels.ell_spmv import ops as eops
     from repro_torch.kernels.ell_spmv import ref as eref
     from repro_torch.kernels.walk_sampler import ops as wops
@@ -2242,28 +2329,49 @@ def phase_timing(dev, results: dict) -> list[dict]:
     gen = torch.Generator(device=dev).manual_seed(3)
     w = torch.randn((n, s), generator=gen, device=dev)
     alpha = torch.randn((t, s), generator=gen, device=dev)
-    nnz = int((vals != 0).sum())
     nnz_x = int((vals_x != 0).sum())
 
-    # 2. Prior draw g = Φ w.
+    # 2. Φ u at the shapes the paths launch: the prior draw over the
+    # monolithic trace, one chunk of the chunked products at K = 48, and one
+    # at the serving and solvers width K = 144, with R = 16 (the solvers'
+    # chunked samples) and R = 1 (the refit engine's chunked BO).
     a_csr = csr(vals, cols, n)
-    got = eops.ell_spmv(vals, cols, w)
-    err, rel = rel_err(got, eref.ell_spmv_ref(vals, cols, w))
-    expect(rel <= KERNEL_RTOL, f"ell_spmv at the main-path shape: rel {rel:.2e}")
-    row("ell_spmv", cuda_ms(lambda: eops.ell_spmv(vals, cols, w), 20),
-        cuda_ms(lambda: eref.ell_spmv_ref(vals, cols, w), 3), (err, rel),
-        bound(n * k * 8 + n * s * 4 + n * s * 4, 2 * nnz * s),
-        cuda_ms(lambda: torch.sparse.mm(a_csr, w), 10))
+    chunk = MAIN["chunk"]
+    mod = modulation.diffusion(l_max=SOLVE["l_max"])
+    f_w = mod({"log_beta": torch.tensor(math.log(SOLVE["beta"]), device=dev),
+               "log_sigma_f": torch.tensor(math.log(SOLVE["sigma_f"]), device=dev)})
+    wide = walks.sample_walks_for_nodes(graph, nodes[:chunk], seed, SOLVE["n_walkers"],
+                                        SOLVE["p_halt"], SOLVE["l_max"])
+    vals_w = features.feature_values(wide, f_w).contiguous()
+    spmv = [timing_spmv(dev, "prior draw", vals, cols, w, 20),
+            timing_spmv(dev, "chunk", vals[:chunk], cols[:chunk], w, 100),
+            timing_spmv(dev, "chunk", vals_w, wide.cols, w, 100),
+            timing_spmv(dev, "chunk", vals_w, wide.cols, w[:, 0].contiguous(), 100)]
+    del wide, vals_w
+    head = spmv[0]
+    row("ell_spmv", head["ms"], head["plain_ms"], (head["max_abs_err"], head["rel"]),
+        (head["bound_ms"], head["bound_by"]), head["library_ms"])
+    by_shape = shapes_summed("ell_spmv")
+    print(f"[timing] ell_spmv launches by (M, K, R) over the paths: {json.dumps(by_shape)}")
+    rows[-1].update(shapes=spmv, launches_by_shape=by_shape)
 
-    # 3. Φ_xᵀ α into [N, 16] (the chunked path's composed cross product).
+    # 3. Φ_xᵀ α into [N, 16] (the chunked path's composed cross product),
+    # zeroing of the output included, as the wrapper runs it.
     ax_t = csr(vals_x, cols_x, n, transpose=True)
-    got = eops.ell_spmv_t(vals_x, cols_x, alpha, n)
+    kern = lambda: eops.ell_spmv_t_raw(vals_x, cols_x, alpha, n)  # noqa: E731
+    got = kern()
     err, rel = rel_err(got, eref.ell_spmv_t_ref(vals_x, cols_x, alpha, n))
     expect(rel <= KERNEL_RTOL, f"ell_spmv_t at the main-path shape: rel {rel:.2e}")
-    row("ell_spmv_t", cuda_ms(lambda: eops.ell_spmv_t(vals_x, cols_x, alpha, n), 50),
+    ms, eager = graph_ms(kern, 20), cuda_ms(kern, 50)
+    print(f"[timing] ell_spmv_t [{t},{k}] -> [{n},{s}]: graph {ms:.4f} ms, eager "
+          f"loop {eager:.4f} ms")
+    row("ell_spmv_t", ms,
         cuda_ms(lambda: eref.ell_spmv_t_ref(vals_x, cols_x, alpha, n), 10), (err, rel),
         bound(t * k * 8 + t * s * 4 + n * s * 4, 2 * nnz_x * s),
         cuda_ms(lambda: torch.sparse.mm(ax_t, alpha), 20))
+    by_shape = shapes_summed("ell_spmv_t")
+    print(f"[timing] ell_spmv_t launches by (M, K, R) over the paths: {json.dumps(by_shape)}")
+    rows[-1].update(eager_ms=eager, launches_by_shape=by_shape)
 
     # 4a. Fused K̂_{·x} α over all N rows (pathwise_samples' cross term),
     # through the training trace's column index, as the path calls it.  The
@@ -2340,6 +2448,49 @@ def phase_timing(dev, results: dict) -> list[dict]:
     rows.append(timing_flash(dev, counts["flash_attention"]))
     rows.append(timing_rmsnorm(dev, counts["rmsnorm"]))
     return rows
+
+
+def timing_spmv(dev, label: str, vals, cols, u, reps: int) -> dict:
+    """ell_spmv at one shape: within 1e-5 of scale of the plain version and
+    bit-equal over two calls; device ms as graph replays and an eager loop,
+    the plain version's and torch.sparse.mm's ms; the bound counts the
+    payload, the rows of u that the non-zero slots touch (counted from
+    these inputs) and y."""
+    import torch
+
+    from repro_torch.kernels.ell_spmv import ops, ref
+
+    m, k = vals.shape
+    n, s = u.shape[0], (1 if u.dim() == 1 else u.shape[1])
+    kern = lambda: ops.ell_spmv_raw(vals, cols, u)   # noqa: E731
+    got = kern()
+    err, rel = rel_err(got, ref.ell_spmv_ref(vals, cols, u))
+    expect(rel <= KERNEL_RTOL, f"ell_spmv {label} [{m}, {k}]: rel {rel:.2e}")
+    expect(torch.equal(got, kern()), f"ell_spmv {label} [{m}, {k}]: two calls differ")
+    del got
+    live = vals != 0
+    nnz = int(live.sum())
+    seen = torch.zeros(n, dtype=torch.bool, device=dev)
+    seen[cols[live].long()] = True
+    touched = int(seen.sum())
+    del live, seen
+    ms, eager = graph_ms(kern, reps), cuda_ms(kern, reps)
+    pms = cuda_ms(lambda: ref.ell_spmv_ref(vals, cols, u), 3)
+    a_csr = csr(vals, cols, n)
+    u2 = u.reshape(n, s)
+    lib = cuda_ms(lambda: torch.sparse.mm(a_csr, u2), 10)
+    del a_csr
+    b = bound(m * k * 8 + touched * s * 4 + m * s * 4, 2 * nnz * s)
+    instance, lanes, parts = ops.route(s, ops.aligned(u))
+    print(f"[timing] ell_spmv {label} [{m}, {k}] x [{n}, {s}] ({instance}, {lanes} "
+          f"lanes x {parts} parts a row): kernel {ms:.4f} ms (graph; eager loop {eager:.4f} ms), "
+          f"plain {pms:.4f} ms, torch.sparse.mm {lib:.4f} ms, bound {b[0]:.4f} ms "
+          f"({b[1]}; {100 * nnz / (m * k):.1f}% live slots, {touched} rows of u "
+          f"touched), max_abs_err {err:.3e} (rel {rel:.2e}), bit-equal over two calls")
+    torch.cuda.empty_cache()
+    return dict(shape=[m, k, s], ms=ms, eager_ms=eager, plain_ms=pms,
+                library_ms=lib, bound_ms=b[0], bound_by=b[1], max_abs_err=err,
+                rel=rel, live=nnz / (m * k), touched=touched)
 
 
 def shapes_summed(name: str) -> dict[str, int]:

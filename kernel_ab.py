@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Time the walk sampler, fused K̂, cross-Gram and Woodbury kernels of this
-checkout against those of another checkout of the repository, on one CUDA
-card, with the same inputs.
+"""Time the walk sampler, ELL gather, fused K̂, cross-Gram and Woodbury
+kernels of this checkout against those of another checkout of the
+repository, on one CUDA card, with the same inputs.
 
     python3 kernel_ab.py --other PATH [--rounds 2] [--kernels a,b,...]
 
@@ -10,8 +10,8 @@ unpacked with ``git archive``).  Each side runs in its own process, which
 imports ``repro_torch`` from that side's ``src/``, builds its kernels and
 times them at the main-path shapes; the sides alternate other, this, this,
 other (``--rounds`` pairs), so that a drift of the card's clocks falls on
-both.  ``--kernels`` picks among walk_sampler, woodbury_apply, gram_block
-and khat_fused (default: all).  Inputs are ring(10⁶, k=3) and walk payloads
+both.  ``--kernels`` picks among walk_sampler, ell_spmv, woodbury_apply,
+gram_block and khat_fused (default: all).  Inputs are ring(10⁶, k=3) and walk payloads
 of it drawn by the port's walk sampler from fixed seeds, identical on both
 sides:
 
@@ -20,6 +20,12 @@ sides:
                   K = 48) and the wide trace (10⁶ rows, 16 walkers, l_max 8:
                   K = 144); the bound counts the outputs and the adjacency
                   rows of the nodes the walks visit;
+  ell_spmv        y = Φu with u [10⁶, 16] at the prior draw over the
+                  monolithic trace [10⁶, 48], one chunk of the chunked
+                  products [65536, 48] and one at the serving and solvers
+                  width [65536, 144] (16 walkers, l_max 8), which also runs
+                  with a 1-D u; the bound counts the payload, the rows of u
+                  that the non-zero slots touch and y;
   woodbury_apply  T = 4000 × r in {64, 128, 256} × R in {1, 9, 16} on the
                   Nyström operands of chip_smoke.py's solvers block (K = 144,
                   β = 4, σ_f = 25, σ² = 1e-2); every time is also taken as
@@ -56,12 +62,13 @@ N = 1_000_000
 MAIN = dict(n_walkers=8, p_halt=0.2, l_max=5, n_train=1024, r=16)
 WIDE = dict(n_walkers=16, p_halt=0.1, l_max=8, capacity=128, solve_rows=4000)
 GRAM_ROWS = (1, 64, 128, 256, 512)
-KERNELS = ("walk_sampler", "woodbury_apply", "gram_block", "khat_fused")
+KERNELS = ("walk_sampler", "ell_spmv", "woodbury_apply", "gram_block", "khat_fused")
 # walk_sampler's shapes: (label, rows, walker config, graph-replay and eager
 # repetitions).  A replayed graph keeps every call's outputs, so the wide
 # trace (1.7 GB a call) replays few.
 WALK_SHAPES = (("1000000x48", N, MAIN, 5, 10), ("65536x48", 65536, MAIN, 40, 40),
                ("1000000x144", N, WIDE, 3, 5))
+SPMV_CHUNK = 65536   # core/walks.py DEFAULT_CHUNK: one chunk of the chunked products
 WOOD_RANKS = (64, 128, 256)
 WOOD_COLS = (1, 9, 16)
 SOLVE = dict(beta=4.0, sigma_f=25.0, sigma_n2=1e-2)
@@ -166,6 +173,43 @@ def walk_cases(dev, graph, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def spmv_cases(dev, graph, out: dict) -> None:
+    """ell_spmv at the paths' shapes, with the bound of these inputs."""
+    import torch
+
+    from repro_torch.core import features, modulation, walks
+    from repro_torch.kernels.ell_spmv import ops as eops
+
+    mod = modulation.diffusion(l_max=MAIN["l_max"])
+    full = walks.sample_walks(graph, 1214163296, MAIN["n_walkers"], MAIN["p_halt"],
+                              MAIN["l_max"])
+    vf = features.feature_values(full, mod(mod.init(device=dev))).contiguous()
+    cf = full.cols
+    del full
+    mod = modulation.diffusion(l_max=WIDE["l_max"])
+    f_wide = mod({"log_beta": torch.tensor(np.log(SOLVE["beta"]), device=dev),
+                  "log_sigma_f": torch.tensor(np.log(SOLVE["sigma_f"]), device=dev)})
+    chunk = torch.arange(SPMV_CHUNK, dtype=torch.int32, device=dev)
+    wide = walks.sample_walks_for_nodes(graph, chunk, 1214163296, WIDE["n_walkers"],
+                                        WIDE["p_halt"], WIDE["l_max"])
+    gen = torch.Generator(device=dev).manual_seed(3)
+    u = torch.randn((N, MAIN["r"]), generator=gen, device=dev)
+    vw = features.feature_values(wide, f_wide).contiguous()
+    cases = [(vf, cf, u, 20), (vf[:SPMV_CHUNK], cf[:SPMV_CHUNK], u, 100),
+             (vw, wide.cols, u, 100), (vw, wide.cols, u[:, 0].contiguous(), 100)]
+    for vals, cols, v, reps in cases:
+        live = vals != 0
+        seen = torch.zeros(N, dtype=torch.bool, device=dev)
+        seen[cols[live].long()] = True
+        (m, k), r = vals.shape, 1 if v.dim() == 1 else v.shape[1]
+        nbytes = m * k * 8 + int(seen.sum()) * r * 4 + m * r * 4
+        del live, seen
+        out["ell_spmv"][f"{m}x{k}x{r}"] = dict(
+            timed(lambda: eops.ell_spmv_raw(vals, cols, v), reps),
+            bound_ms=nbytes / HBM_BYTES_PER_S * 1e3)
+        torch.cuda.empty_cache()
+
+
 def woodbury_cases(dev, graph, out: dict) -> None:
     """woodbury_apply at T = 4000 × WOOD_RANKS × WOOD_COLS on the solvers
     block's Nyström operands."""
@@ -215,6 +259,8 @@ def worker(src: str, kernels: list[str]) -> dict:
     graph = generators.ring(N, k=3, device=dev)
     if "walk_sampler" in kernels:
         walk_cases(dev, graph, out)
+    if "ell_spmv" in kernels:
+        spmv_cases(dev, graph, out)
     if "woodbury_apply" in kernels:
         woodbury_cases(dev, graph, out)
     out["device"] = torch.cuda.get_device_name(0)
@@ -347,9 +393,11 @@ def main() -> int:
                 f"{fmt(_median(runs['this'], kind, shape, how))}" for how in hows)
             if "index_ms" in extra:
                 line += f"; index build {extra['index_ms']:.3f} ms, U {extra['n_uniq']}"
-            if "bound_ms" in extra:
+            if "visited" in extra:
                 line += (f"; bound {extra['bound_ms']:.5f} ms, {extra['visited']} "
                          "nodes visited")
+            elif "bound_ms" in extra:
+                line += f"; bound {extra['bound_ms']:.5f} ms"
             print(f"[ab] {kind} {shape}: {line}")
     return 0
 

@@ -100,14 +100,16 @@ def launch_counts() -> dict[str, int]:
 
 def launch_shapes() -> dict[str, dict[tuple, int]]:
     """Launches by shape since the last reset: ``walk_sampler`` by (M, K),
-    ``woodbury_apply`` by (T, r, columns)."""
+    ``woodbury_apply`` by (T, r, columns), ``ell_spmv`` and ``ell_spmv_t``
+    by (M, K, R)."""
     return {"walk_sampler": dict(walk_ops.BY_SHAPE),
-            "woodbury_apply": dict(wood_ops.BY_SHAPE)}
+            "woodbury_apply": dict(wood_ops.BY_SHAPE),
+            **{name: dict(by) for name, by in ell_ops.BY_SHAPE.items()}}
 
 
 def reset_launch_counts() -> None:
     for counts in _COUNTERS:
         for name in counts:
             counts[name] = 0
-    walk_ops.BY_SHAPE.clear()
-    wood_ops.BY_SHAPE.clear()
+    for by in (walk_ops.BY_SHAPE, wood_ops.BY_SHAPE, *ell_ops.BY_SHAPE.values()):
+        by.clear()

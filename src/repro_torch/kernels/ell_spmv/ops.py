@@ -4,9 +4,12 @@
 ``khat_fused`` (csrc/khat_fused.cu).  Each runs its plain version (ref.py)
 on CPU tensors and launches its kernel on CUDA tensors — on PyTorch's
 current stream, after checking device, dtype, shape and contiguity — or
-raises.  Those are the ``*_raw`` functions.  The public ``ell_spmv``,
-``ell_spmv_t`` and ``khat_fused`` wrap them in ``torch.autograd.Function``s
-that mirror the JAX custom VJPs (``repro/kernels/ell_spmv/ops.py:52/77/105``):
+raises.  Those are the ``*_raw`` functions.  ``ell_spmv``'s instance (the
+vector or the scalar one, and its lanes and parts a row) is picked by
+:func:`route`, a pure rule of R and alignment; both are CUDA.  The public
+``ell_spmv``, ``ell_spmv_t`` and ``khat_fused`` wrap them in
+``torch.autograd.Function``s that mirror the JAX custom VJPs
+(``repro/kernels/ell_spmv/ops.py:52/77/105``):
 all three products are linear in the ELL values and in the dense operand,
 and each dense cotangent is itself one of the products, so the backward runs
 on the same kernels (Φᵀg for Φ, Φg for Φᵀ; for K̂ two Φᵀ scatters and the
@@ -21,6 +24,7 @@ payloads; bf16 payloads appear only in solves under ``torch.no_grad()``.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import torch
 
@@ -28,14 +32,23 @@ from .. import build
 from .index import ColumnIndex, column_index
 from .ref import ell_spmv_ref, ell_spmv_t_ref, khat_matvec_ref
 
-# Kernel launches since the last reset (chip_smoke.py reads it).
+# Kernel launches since the last reset (chip_smoke.py reads it), and the
+# two ELL products' launches by (M, K, R) (R = 1 for a 1-D operand).
 LAUNCHES = {"ell_spmv": 0, "ell_spmv_t": 0, "khat_fused": 0}
+BY_SHAPE = {"ell_spmv": Counter(), "ell_spmv_t": Counter()}
+
+# ell_spmv's instances (csrc/ell_spmv.cu): float4 gathers and stores, or
+# float ones; a row of u covered by 1, 2, 4, ..., MAX_LANES lanes, and at
+# least MIN_ROW_LANES lanes a row.
+VECTOR, SCALAR = "vector", "scalar"
+MAX_LANES, MIN_ROW_LANES = 32, 4
 
 _F32 = (torch.float32,)
 _PAYLOAD = (torch.float32, torch.bfloat16)
 _I32 = (torch.int32,)
 _VP = ctypes.c_void_p
 _SPMV_ARGS = [_VP] * 4 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int, _VP]
+_GATHER_ARGS = [_VP] * 4 + [ctypes.c_longlong] + [ctypes.c_int] * 6 + [_VP]
 _KHAT_ARGS = [_VP] * 9 + [ctypes.c_longlong] + [ctypes.c_int] * 5 + [_VP]
 
 
@@ -51,22 +64,54 @@ def _width(x) -> int:
     return 1 if x.dim() == 1 else x.shape[1]
 
 
+def aligned(*tensors) -> bool:
+    """Every tensor's base is 16-byte aligned (a slice may not be)."""
+    return all(t.data_ptr() % 16 == 0 for t in tensors)
+
+
+def route(r: int, aligned: bool) -> tuple[str, int, int]:
+    """``ell_spmv``'s instance for R columns of u, its lanes covering a row
+    of u and the parts a row's slots are split into.
+
+    ``VECTOR`` (16-byte gathers and stores) when R % 4 == 0 and u and y are
+    16-byte aligned (``aligned``), else ``SCALAR``.  The lanes are the least
+    power of two covering a row of u in the instance's units (R/4 float4s
+    or R floats), at most ``MAX_LANES`` (wider rows are walked in column
+    chunks); the parts make at least ``MIN_ROW_LANES`` lanes a row, a warp
+    taking 32/(lanes·parts) rows."""
+    if r < 1:
+        raise ValueError(f"ell_spmv: R must be at least 1, got {r}")
+    vector = r % 4 == 0 and aligned
+    units = r // 4 if vector else r
+    lanes = min(MAX_LANES, 1 << (units - 1).bit_length())
+    return (VECTOR if vector else SCALAR, lanes, max(1, MIN_ROW_LANES // lanes))
+
+
 def ell_spmv_raw(vals: torch.Tensor, cols: torch.Tensor,
                  u: torch.Tensor) -> torch.Tensor:
-    """y = Φ u: vals f32[M, K], cols i32[M, K], u f32[N(, R)] → f32[M(, R)]."""
+    """y = Φ u: vals f32[M, K], cols i32[M, K], u f32[N(, R)] → f32[M(, R)].
+
+    An empty y (M = 0 or R = 0) launches nothing."""
     name = "ell_spmv"
     if not build.on_cuda(name, vals, cols, u):
         return ell_spmv_ref(vals, cols, u)
     _check_payload(name, vals, cols, _F32)
     build.check(name, u, "u", _F32, (1, 2))
     m, k = vals.shape
+    r = _width(u)
     y = torch.empty((m,) + tuple(u.shape[1:]), dtype=torch.float32,
                     device=u.device)
-    fn = build.bind(name, "ell_spmv_launch", _SPMV_ARGS)
+    if y.numel() == 0:
+        return y
+    instance, lanes, parts = route(r, aligned(u, y))
+    vec_payload = k % 4 == 0 and aligned(vals, cols)
+    fn = build.bind(name, "ell_spmv_launch", _GATHER_ARGS)
     with build.device(u.device):
         fn(build.ptr(vals), build.ptr(cols), build.ptr(u), build.ptr(y), m, k,
-           _width(u), build.stream(u.device))
+           r, int(instance == VECTOR), lanes, parts, int(vec_payload),
+           build.stream(u.device))
     LAUNCHES[name] += 1
+    BY_SHAPE[name][(m, k, r)] += 1
     return y
 
 
@@ -88,6 +133,7 @@ def ell_spmv_t_raw(vals: torch.Tensor, cols: torch.Tensor, v: torch.Tensor,
         fn(build.ptr(vals), build.ptr(cols), build.ptr(v), build.ptr(out), m,
            k, _width(v), build.stream(v.device))
     LAUNCHES[name] += 1
+    BY_SHAPE[name][(m, k, _width(v))] += 1
     return out
 
 

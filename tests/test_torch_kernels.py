@@ -192,20 +192,26 @@ def test_launch_counters_reset():
 
 
 def test_launch_shapes_reset_and_cpu_calls_record_none():
-    """walk_sampler's launches by (M, K) and woodbury_apply's by (T, r, R)
-    reset with the counts, and a CPU call (the plain version) records no
-    launch of either."""
+    """walk_sampler's launches by (M, K), woodbury_apply's by (T, r, R) and
+    the ELL products' by (M, K, R) reset with the counts, and a CPU call
+    (the plain version) records no launch of any."""
     from repro_torch.graphs import generators
 
+    empty = {"walk_sampler": {}, "woodbury_apply": {}, "ell_spmv": {},
+             "ell_spmv_t": {}}
+    ops.BY_SHAPE["ell_spmv"][(3, 4, 5)] += 1
     dispatch.reset_launch_counts()
-    assert dispatch.launch_shapes() == {"walk_sampler": {}, "woodbury_apply": {}}
+    assert dispatch.launch_shapes() == empty
     g = generators.ring(50, k=2, device="cpu")
     dispatch.walk_sample(g.neighbors, g.weights, g.deg,
                          torch.arange(7, dtype=torch.int32), 3,
                          n_walkers=2, p_halt=0.3, l_max=2)
     b = torch.ones((5, 2))
     dispatch.woodbury_apply(b, torch.ones(5), torch.eye(2), torch.ones(5))
-    assert dispatch.launch_shapes() == {"walk_sampler": {}, "woodbury_apply": {}}
+    vals, cols = torch.ones((6, 4)), torch.zeros((6, 4), dtype=torch.int32)
+    dispatch.phi_matvec(vals, cols, torch.ones((9, 16)))
+    dispatch.phi_t_matvec(vals, cols, torch.ones(6), 9)
+    assert dispatch.launch_shapes() == empty
 
 
 def test_cuda_sources_name_the_tpu_kernel_they_replace():
