@@ -96,7 +96,43 @@ non-zero exit and no result line):
                layers, f32, window 512: prefill(640) + 16 decode steps
                against forward on the card, and the card against the CPU,
                each within 1e-3.
- 10. timing    each kernel at the main-path shapes with CUDA events: kernel,
+ 10. parity-baselines
+               the shapes the baselines give the kernels: ell_spmv at R = 1024
+               over [1024, 48] rows of the 10⁶-node trace (u 4 GiB) and at
+               R = 4096 over [1024, 48] rows of a 65536-node ring (u 1 GiB),
+               past 32 float4 lanes (column chunks), within 1e-5 of scale and
+               bit-equal over two calls; walk_sampler at the SVGP trace
+               (SBM 2500, 500 walkers, l_max 5, K = 3000) and the baselines'
+               (grid 64x64, 100 walkers, l_max 10, K = 1100), bit-equal to
+               the plain version for every scheme; each timed for the result
+               line.
+ 11. baselines the paper's comparison where O(N³) runs: grid2d(64, 64),
+               T = 1024, noise 0.1, the truth drawn through the port's
+               eigendecomposition.  The exact GP (150-step exact-diffusion fit
+               + Cholesky posterior; no kernel of the port) against the GRF-GP
+               (100 walkers, p_halt 0.1, l_max 10; 80-step fit; 64 pathwise
+               samples): test RMSE and NLPD, first and warm wall, peak memory,
+               the GRF fit's and posterior's busy share; gates: finite scores,
+               GRF RMSE within 1.5x the exact GP's, walk_sampler, khat_fused,
+               ell_spmv and ell_spmv_t launched; the fused K̂ at the fit's CG
+               shape [1024, 1100], R = 9; the exact path card vs CPU within
+               1e-4 at N = 400; the wind twin at 2000 nodes.
+ 12. svgp      bench_classification.py's full mode: SBM(2500, 7), 80/20
+               split, K = 3000, 150 inducing nodes, 600 steps: accuracy
+               (gate: twice chance), ms a step and its busy share, beside the
+               exact diffusion and Matérn classifiers; walk_sampler launched.
+ 13. jlt       the JLT + Woodbury solver: the JAX test's problem (grid2d(7, 7),
+               m = 4096; gate: correlation with CG > 0.95), then the
+               posterior cell's T = 1024 rows at N = 10⁶, m = 1024 (G 4 GiB):
+               correlation, wall, peak; ell_spmv launched at R = 1024.
+ 14. obs       the main posterior calls, one fit chunk, one serving wave and
+               one BO round under obs.recording(chiprun_out/obs.jsonl): the
+               record validates, every expected span is there,
+               walks.rows_sampled equals the rows of the walk kernel's
+               launches, and the solver.cg histogram counts every solve; the
+               summary table; then the same calls with obs disabled record
+               and write nothing.
+ 15. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
                (ell_spmv at the prior draw [10⁶, 48] and one chunk each of
                [65536, 48] and [65536, 144], u [10⁶, 16], and the K = 144
@@ -126,7 +162,11 @@ non-zero exit and no result line):
                host µs per call against F.rms_norm); printed as one
                {"kernels": [...]} line.
 
-Each path (main, fit, serving, each BO loop, solvers, lm) is driven with every launch
+The new shapes of phase 10 and khat_fused's at phase 11's CG shape join
+their kernels' `shapes` lists in that line.
+
+Each path (main, fit, serving, each BO loop, solvers, lm, baselines, svgp,
+jlt, obs) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
 runs was never launched; a kernel's `launches` in the result line is the
 sum over those runs.  walk_sampler's launches are also printed by (M, K),
@@ -139,6 +179,7 @@ result.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import subprocess
@@ -209,6 +250,23 @@ SOLVE = dict(n_nodes=1_000_000, ring_k=3, n_walkers=16, p_halt=0.1, l_max=8,
 # several lane and part counts, and its parity row counts.
 SPMV_WIDTHS = (None, 1, 2, 3, 4, 16, 17, 64)
 SPMV_ROWS = (0, 1, 33, 65537)
+# ell_spmv at the widths of the JLT features (rows × R): [1024, 48] rows of
+# the 10⁶-node trace against u [10⁶, 1024] (4 GiB), and of a 65536-node ring
+# against u [65536, 4096] (1 GiB; 16 GiB at 10⁶ nodes) — past 32 float4
+# lanes a row, so in column chunks.
+WIDE_SPMV = ((MAIN["n_nodes"], 1024), (65536, 4096))
+# The paper's comparison where O(N³) still runs: grid2d(64, 64) (N = 4096),
+# T = N/4, noise 0.1; quickstart.py's walks (K = 1100), 80-step fit, 64
+# samples and 150-step exact fit.
+BASE = dict(rows=64, cols=64, beta=6.0, noise=0.1, n_walkers=100, p_halt=0.1,
+            l_max=10, fit_steps=80, lr=0.08, n_samples=64, exact_steps=150)
+# bench_classification.py's full-mode SVGP: SBM(2500, 7), an 80/20 split,
+# 500 walkers, p_halt 0.2, l_max 5 (K = 3000), 150 inducing nodes, 600 steps.
+SVGP = dict(n_nodes=2500, n_classes=7, p_in=0.045, p_out=0.012, n_walkers=500,
+            p_halt=0.2, l_max=5, n_inducing=150, steps=600, lr=0.08, n_mc=8)
+# The JLT solver: the JAX test's width on grid2d(7, 7), and m = 1024 on the
+# posterior cell's training rows (G [10⁶, 1024] is 4 GiB).
+JLT = dict(m_small=4096, m_main=1024)
 # woodbury_apply's timed shapes at T = 4000: ranks and RHS widths.
 WOOD_RANKS = (64, 128, 256)
 WOOD_COLS = (1, 9, 16)
@@ -2161,6 +2219,549 @@ def phase_lm(dev) -> dict:
 
 
 # --------------------------------------------------------------------------
+# Slice 9: the paper's baselines, SVGP classification, the JLT solver and
+# the observability layer
+# --------------------------------------------------------------------------
+
+
+def check_baseline_kernels(dev) -> dict:
+    """The shapes the baselines give the kernels that earlier paths never
+    did: ell_spmv at WIDE_SPMV (R past 32 float4 lanes: column chunks) and
+    walk_sampler at the SVGP trace (K = 3000) and the baselines' trace
+    (K = 1100), each against its plain version (ell_spmv within 1e-5 of
+    scale and bit-equal over two calls; walks bit-equal for every scheme)
+    and timed.  Comparison launches only: no path runs here."""
+    import torch
+
+    from repro_torch.core import features, modulation, walks
+    from repro_torch.graphs import generators
+
+    spmv = []
+    for n, r in WIDE_SPMV:
+        graph = generators.ring(n, k=MAIN["ring_k"], device=dev)
+        wcfg = walks.WalkConfig(MAIN["n_walkers"], MAIN["p_halt"], MAIN["l_max"])
+        mod = modulation.diffusion(l_max=MAIN["l_max"])
+        f = mod(mod.init(device=dev))
+        rows = torch.from_numpy(np.sort(np.random.default_rng(0).choice(
+            n, MAIN["n_train"], replace=False)).astype(np.int32)).to(dev)
+        seed = walks.walk_seed(torch.Generator(device=dev).manual_seed(7))
+        tx = walks.sample_walks_for_nodes(graph, rows, seed, wcfg.n_walkers,
+                                          wcfg.p_halt, wcfg.l_max)
+        vals = features.feature_values(tx, f).contiguous()
+        u = torch.randn((n, r), generator=torch.Generator(device=dev).manual_seed(11),
+                        device=dev)
+        print(f"[parity] ell_spmv wide: u [{n}, {r}] is {u.numel() * 4 / 2**30:.2f} GiB")
+        spmv.append(timing_spmv(dev, f"wide R={r}", vals, tx.cols, u, 10))
+        del u, graph
+        torch.cuda.empty_cache()
+    walk = []
+    g, _ = generators.community_sbm(SVGP["n_nodes"], SVGP["n_classes"],
+                                    p_in=SVGP["p_in"], p_out=SVGP["p_out"],
+                                    seed=0, device=dev)
+    walk.append(walk_shape(dev, g, 2024, "svgp", SVGP, g.n_nodes, 10))
+    g = generators.grid2d(BASE["rows"], BASE["cols"], device=dev)
+    walk.append(walk_shape(dev, g, 2024, "baselines", BASE, g.n_nodes, 10))
+    print(f"[parity] baselines' shapes: ell_spmv at R = "
+          + ", ".join(str(x["shape"][2]) for x in spmv)
+          + " within 1e-5 of scale and bit-equal twice; walk_sampler at K = "
+          + ", ".join(str(x["shape"][1]) for x in walk)
+          + " bit-equal to the plain version for every scheme")
+    return dict(ell_spmv=spmv, walk_sampler=walk)
+
+
+def baselines_problem(dev, rows: int, cols: int):
+    """grid2d(rows, cols), a ground truth drawn from the exact diffusion
+    kernel through the port's own eigendecomposition, y = V·(√spec ⊙ z)
+    (a float64 host Cholesky of the float32 kernel need not be positive
+    definite at this N), and T = N/4 observations with noise BASE["noise"];
+    z, the training nodes and the noise from numpy default_rng(0)."""
+    import torch
+
+    from repro_torch.core import kernels_exact
+    from repro_torch.graphs import generators
+
+    g = generators.grid2d(rows, cols, device=dev)
+    n = g.n_nodes
+    evals, evecs = kernels_exact.laplacian_eigh(g)
+    rng = np.random.default_rng(0)
+    z = torch.from_numpy(rng.standard_normal(n).astype(np.float32)).to(dev)
+    spec = torch.exp(-BASE["beta"] * torch.clamp(evals, min=0.0))
+    ytrue = (evecs @ (torch.sqrt(spec) * z)).cpu().numpy()
+    train = rng.choice(n, n // 4, replace=False)
+    y = (ytrue[train] + BASE["noise"] * rng.standard_normal(len(train))).astype(np.float32)
+    test = np.setdiff1d(np.arange(n), train)
+    return g, ytrue, train, test, y
+
+
+def phase_baselines(dev) -> dict:
+    """The paper's comparison (exact GP, O(N³), against GRFs) at
+    grid2d(64, 64): wall, peak memory, test RMSE and NLPD of each, the
+    device idle share of the GRF fit and posterior, the fused K̂ at the
+    fit's CG shape (K = 1100), the exact path card vs CPU at N = 400, and
+    the wind twin at its defaults."""
+    import argparse
+
+    import torch
+
+    from repro_torch.core import features, modulation, walks
+    from repro_torch.examples import quickstart, wind_interpolation
+    from repro_torch.gp import exact, mll, posterior
+    from repro_torch.kernels.ell_spmv import ops as eops
+    from repro_torch.kernels.ell_spmv import ref as eref
+
+    g, ytrue, train, test, y = baselines_problem(dev, BASE["rows"], BASE["cols"])
+    n, t = g.n_nodes, len(train)
+    print(f"[baselines] grid2d({BASE['rows']}, {BASE['cols']}): N = {n}, T = {t}, "
+          f"noise {BASE['noise']}; ground truth y = V·(sqrt(exp(-{BASE['beta']} "
+          "λ)) ⊙ z) from the port's eigendecomposition")
+    train_t, y_t = torch.as_tensor(train, device=dev), torch.as_tensor(y, device=dev)
+    out = {}
+
+    # The exact GP: quickstart's 150-step fit of the exact diffusion kernel,
+    # then the Cholesky posterior.
+    reset_counts()
+    exact_fn = lambda: quickstart.exact_gp(g, train, y, ytrue, test,   # noqa: E731
+                                           steps=BASE["exact_steps"])
+    (p_ex, rmse_ex, nlpd_ex), wall, peak = timed_call(exact_fn, dev)
+    _, warm, warm_peak = timed_call(exact_fn, dev)
+    counts = counts_now()
+    expect(not any(counts.values()),
+           f"the exact path launched a kernel of the port: {counts}")
+    expect(math.isfinite(rmse_ex) and math.isfinite(nlpd_ex),
+           f"exact GP: non-finite scores {rmse_ex} {nlpd_ex}")
+    print(f"[baselines] exact GP: test RMSE {rmse_ex:.4f}, NLPD {nlpd_ex:.4f}; "
+          f"fit ({BASE['exact_steps']} steps, one eigh) + Cholesky posterior: first "
+          f"{wall * 1e3:.1f} ms, warm {warm * 1e3:.1f} ms, max_memory_allocated "
+          f"{mib(peak)} MiB; beta {float(torch.exp(p_ex['log_beta'])):.3f}; dense "
+          "torch only (no kernel of the port launched)")
+    out["exact"] = dict(rmse=rmse_ex, nlpd=nlpd_ex, first_s=wall, warm_s=warm,
+                        peak=peak)
+
+    # The GRF-GP: quickstart's walks, the 80-step LML fit and 64 pathwise
+    # samples.
+    reset_counts()
+    mod = modulation.learnable(l_max=BASE["l_max"])
+    seed = walks.walk_seed(torch.Generator().manual_seed(0))
+    st = {}
+
+    def sample():
+        st["trace"] = walks.sample_walks(g, seed, BASE["n_walkers"], BASE["p_halt"],
+                                         BASE["l_max"])
+        st["tx"] = features.take_rows(st["trace"], train_t)
+        return st["trace"]
+
+    def fit():
+        st["fit"] = mll.fit_hyperparams(
+            st["tx"], mod, y_t, n, torch.Generator(device=dev).manual_seed(1),
+            steps=BASE["fit_steps"], lr=BASE["lr"])
+        return st["fit"]
+
+    def draw():
+        p = st["fit"].params
+        with torch.no_grad():
+            return posterior.pathwise_samples(
+                st["trace"], train_t, mod(p["mod"]), mll.noise_var(p), y_t,
+                torch.Generator(device=dev).manual_seed(2),
+                n_samples=BASE["n_samples"], return_diagnostics=True)
+
+    timings = {}
+    for label, fn in (("sample_walks", sample), ("fit_hyperparams", fit),
+                      ("pathwise_samples", draw)):
+        res, wall, peak = timed_call(fn, dev)
+        timings[label] = dict(first_s=wall, peak=peak)
+    counts = counts_now()
+    gate_counts("baselines", counts, ("walk_sampler", "khat_fused", "ell_spmv",
+                                      "ell_spmv_t"))
+    samples, iters, conv = res
+    s2 = mll.noise_var(st["fit"].params).detach()
+    mean, var = posterior.predictive_moments_from_samples(samples)
+    rmse, nlpd = quickstart.scores(ytrue, test, mean, var + s2)
+    hist = st["fit"].history
+    expect(all(h["cg_converged"] for h in hist) and conv,
+           "baselines: a GRF solve did not converge")
+    expect(math.isfinite(rmse) and math.isfinite(nlpd),
+           f"GRF-GP: non-finite scores {rmse} {nlpd}")
+    for label, fn in (("fit_hyperparams", fit), ("pathwise_samples", draw)):
+        timings[label]["warm_s"] = timed_call(fn, dev)[1]
+    for label, fn in (("fit_hyperparams", fit), ("pathwise_samples", draw)):
+        timings[label]["busy"] = profile_busy(f"baselines GRF {label}", fn, dev,
+                                              timings[label]["warm_s"])
+    for label, tm in timings.items():
+        print(f"[baselines] GRF {label}: first {tm['first_s'] * 1e3:.1f} ms"
+              + (f", warm {tm['warm_s'] * 1e3:.1f} ms" if "warm_s" in tm else "")
+              + f", max_memory_allocated {mib(tm['peak'])} MiB")
+    print(f"[baselines] GRF-GP: test RMSE {rmse:.4f}, NLPD {nlpd:.4f} (exact GP "
+          f"{rmse_ex:.4f}, {nlpd_ex:.4f}: ratio {rmse / rmse_ex:.3f}); fit's last "
+          f"step: {json.dumps(hist[-1])}; posterior CG {iters} iterations")
+    expect(rmse <= 1.5 * rmse_ex,
+           f"GRF-GP RMSE {rmse:.4f} beyond 1.5x the exact GP's {rmse_ex:.4f}")
+    out["grf"] = dict(rmse=rmse, nlpd=nlpd, timings=timings, counts=counts)
+
+    # The fused K̂ at the fit's CG shape: K̂_xx V over [T, 1100], R = 1 + 8
+    # probes, through the training trace's column index.
+    tx, f = st["tx"], mod(st["fit"].params["mod"]).detach()
+    vx = features.feature_values(tx, f).contiguous()
+    cx = tx.cols.contiguous()
+    k = vx.shape[1]
+    v = torch.randn((t, 9), generator=torch.Generator(device=dev).manual_seed(4),
+                    device=dev)
+    idx = column_index_timed(tx, n, "baselines fit")
+    kern = lambda: eops.khat_fused_raw(vx, cx, vx, cx, v, n, idx)  # noqa: E731
+    got = kern()
+    err, rel = rel_err(got, eref.khat_matvec_ref(vx, cx, vx, cx, v, n))
+    expect(rel <= KERNEL_RTOL, f"khat_fused at the baselines' CG shape: rel {rel:.2e}")
+    expect(torch.equal(got, kern()), "khat_fused baselines' CG shape: two calls differ")
+    nnz = int((vx != 0).sum())
+    ms, eager = graph_ms(kern, 100), cuda_ms(kern, 50)
+    pms = cuda_ms(lambda: eref.khat_matvec_ref(vx, cx, vx, cx, v, n), 10)
+    ax, ax_t = csr(vx, cx, n), csr(vx, cx, n, transpose=True)
+    lib = cuda_ms(lambda: torch.sparse.mm(ax, torch.sparse.mm(ax_t, v)), 20)
+    b = bound(t * k * 8 + 2 * t * 9 * 4, 4 * nnz * 9)
+    print(f"[timing] khat_fused at the baselines' CG shape [{t}, {k}], R = 9: kernel "
+          f"{ms:.4f} ms (graph; eager loop {eager:.4f} ms), plain {pms:.4f} ms, "
+          f"library {lib:.4f} ms, bound {b[0] * 1e3:.3f} us ({b[1]}), max_abs_err "
+          f"{err:.3e} (rel {rel:.2e})")
+    out["khat_shape"] = dict(shape=[t, k, t, k, 9], dtype="torch.float32", ms=ms,
+                             eager_ms=eager, plain_ms=pms, bound_ms=b[0],
+                             bound_by=b[1], max_abs_err=err, library_ms=lib)
+    del st, vx, ax, ax_t
+    torch.cuda.empty_cache()
+
+    # The exact path on the card against the CPU at N = 400 (quickstart's
+    # grid): the same observations, both devices' eigendecompositions.
+    from repro_torch.graphs import generators
+
+    _, _, trc, _, ycc = baselines_problem(torch.device("cpu"), 20, 20)
+    res = {}
+    for key, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        gd = generators.grid2d(20, 20, device=d)
+        tr_d, y_d = torch.as_tensor(trc, device=d), torch.as_tensor(ycc, device=d)
+        p, kf = exact.fit_exact_diffusion(gd, tr_d, y_d, steps=BASE["exact_steps"])
+        res[key] = exact.cholesky_posterior(kf, tr_d, y_d,
+                                            torch.exp(2 * p["log_sigma_n"]))
+    for i, name in enumerate(("mean", "var")):
+        e, r = rel_err(res["card"][i].cpu(), res["cpu"][i])
+        expect(r <= E2E_RTOL, f"exact GP card vs CPU at N = 400: {name} rel {r:.2e}")
+        print(f"[baselines] exact GP card vs CPU at N = 400: {name} max abs {e:.3e} "
+              f"(rel {r:.2e})")
+
+    # The wind twin at its defaults (2000 nodes, both modulations).
+    reset_counts()
+    t0 = time.perf_counter()
+    wind = wind_interpolation.run(argparse.Namespace(nodes=2000, walkers=100,
+                                                     device=str(dev)))
+    sync(dev)
+    for name, (r, nl) in wind.items():
+        expect(math.isfinite(r) and math.isfinite(nl), f"wind {name}: non-finite")
+    print(f"[baselines] wind twin (2000 nodes): "
+          + "; ".join(f"{k} RMSE {r:.4f} NLPD {nl:.4f}" for k, (r, nl) in wind.items())
+          + f"; {time.perf_counter() - t0:.1f} s; launches {json.dumps(counts_now())}")
+    out["wind"] = wind
+    out["counts"] = {kk: out["grf"]["counts"][kk] + counts_now()[kk]
+                     for kk in out["grf"]["counts"]}
+    return out
+
+
+def ridge_accuracy(k_full, labels, train, test, n_classes: int) -> float:
+    """bench_classification.py's exact-kernel baseline: kernel ridge on the
+    one-hot labels (ridge 0.05), argmax of the test predictions."""
+    import torch
+
+    k_xx = k_full[train][:, train]
+    k_tx = k_full[test][:, train]
+    onehot = torch.nn.functional.one_hot(labels[train], n_classes).float()
+    alpha = torch.linalg.solve(
+        k_xx + 0.05 * torch.eye(len(train), device=k_full.device), onehot)
+    pred = torch.argmax(k_tx @ alpha, dim=1)
+    return float(torch.mean((pred == labels[test]).float()))
+
+
+def phase_svgp(dev) -> dict:
+    """bench_classification.py's full-mode SVGP on the card: accuracy, wall
+    per step and the device idle share of the steps, beside the two
+    exact-kernel classifiers."""
+    import torch
+
+    from repro_torch.core import kernels_exact, modulation, walks
+    from repro_torch.gp import variational
+    from repro_torch.graphs import generators
+
+    c = SVGP
+    g, labels_np = generators.community_sbm(c["n_nodes"], c["n_classes"],
+                                            p_in=c["p_in"], p_out=c["p_out"],
+                                            seed=0, device=dev)
+    n = g.n_nodes
+    labels = torch.as_tensor(np.asarray(labels_np), dtype=torch.int64, device=dev)
+    rng = np.random.default_rng(0)
+    perm = rng.permutation(n)
+    split = int(0.8 * n)
+    train = torch.from_numpy(perm[:split]).to(dev)
+    test = torch.from_numpy(perm[split:]).to(dev)
+    eig = kernels_exact.laplacian_eigh(g)
+    acc_diff = ridge_accuracy(kernels_exact.diffusion_kernel(g, beta=2.0, eig=eig),
+                              labels, train, test, c["n_classes"])
+    acc_mat = ridge_accuracy(kernels_exact.matern_kernel(g, nu=1.5, kappa=1.0, eig=eig),
+                             labels, train, test, c["n_classes"])
+    inducing = torch.from_numpy(rng.choice(n, c["n_inducing"], replace=False)).to(dev)
+
+    reset_counts()
+    mod = modulation.learnable(l_max=c["l_max"])
+    seed = walks.walk_seed(torch.Generator().manual_seed(0))
+    st = {}
+
+    def sample():
+        st["trace"] = walks.sample_walks(g, seed, c["n_walkers"], c["p_halt"],
+                                         c["l_max"])
+
+    def fit(steps=c["steps"]):
+        st["params"] = variational.fit_svgp(
+            st["trace"], mod, inducing, train, labels[train], n, c["n_classes"],
+            generator=torch.Generator(device=dev).manual_seed(1), steps=steps,
+            lr=c["lr"], n_mc=c["n_mc"])
+
+    _, t_walk, _ = timed_call(sample, dev)
+    _, wall, peak = timed_call(fit, dev)
+    pred = variational.predict_classes(st["params"], st["trace"], mod, inducing,
+                                       test, n)
+    acc = float(torch.mean((pred == labels[test]).float()))
+    counts = counts_now()
+    gate_counts("svgp", counts, ("walk_sampler",))
+    chance = 1.0 / c["n_classes"]
+    expect(acc >= 2 * chance, f"svgp accuracy {acc:.3f} below twice chance {chance:.3f}")
+    short = lambda: fit(10)   # noqa: E731
+    warm10 = timed_call(short, dev)[1]
+    busy = profile_busy("svgp 10 steps", short, dev, warm10)
+    print(f"[svgp] SBM({n}, {c['n_classes']}), K = {st['trace'].slots}, "
+          f"{c['n_inducing']} inducing, {c['steps']} steps: accuracy {acc:.4f} "
+          f"(chance {chance:.4f}); exact diffusion (beta 2) {acc_diff:.4f}, exact "
+          f"Matérn (nu 1.5, kappa 1) {acc_mat:.4f}; walks {t_walk * 1e3:.1f} ms; fit "
+          f"{wall:.2f} s ({wall / c['steps'] * 1e3:.2f} ms a step; 10 warm steps "
+          f"{warm10 / 10 * 1e3:.2f} ms a step), max_memory_allocated {mib(peak)} MiB; "
+          "the kernel blocks are dense products (no kernel of the port)")
+    return dict(counts=counts, acc=acc, acc_diff=acc_diff, acc_mat=acc_mat,
+                step_ms=wall / c["steps"] * 1e3, busy=busy)
+
+
+def phase_jlt(dev) -> dict:
+    """App. B's JLT + Woodbury solver: the JAX test's problem and gate
+    (correlation with the CG solution > 0.95 at m = 4096), then the
+    posterior cell's T = 1024 rows of the 10⁶-node trace at m = 1024
+    (G is 4 GB): correlation, wall and peak memory."""
+    import torch
+
+    from repro_torch.core import features, jlt, modulation, walks
+    from repro_torch.gp import mll
+    from repro_torch.graphs import generators
+    from repro_torch.solvers import cg_solve
+
+    g = generators.grid2d(7, 7, device=dev)
+    tr = walks.sample_walks(g, 2024, 30, 0.2, 6)
+    mod = modulation.diffusion(l_max=6)
+    f = mod(mod.init(device=dev))
+    rng = np.random.default_rng(0)
+    train = torch.from_numpy(rng.choice(49, 18, replace=False)).to(dev)
+    y = torch.from_numpy(rng.standard_normal(18).astype(np.float32)).to(dev)
+    tx = features.take_rows(tr, train)
+    h = mll.make_h_operator(tx, f, 0.05, 49)
+    want = cg_solve(h, y, tol=1e-7, max_iters=500).x
+    k1 = jlt.jlt_features(tx, f, torch.Generator(device=dev).manual_seed(3),
+                          JLT["m_small"], 49)
+    got = jlt.woodbury_solve(k1, 0.05, y)
+    corr = float(np.corrcoef(want.cpu().numpy(), got.cpu().numpy())[0, 1])
+    expect(corr > 0.95, f"jlt on grid2d(7, 7): correlation {corr:.4f} <= 0.95")
+    print(f"[jlt] grid2d(7, 7), m = {JLT['m_small']}: correlation with CG {corr:.4f}")
+
+    reset_counts()
+    graph, wcfg, f, train, y = make_problem(MAIN, dev)
+    n, s2, m = MAIN["n_nodes"], MAIN["sigma_n2"], JLT["m_main"]
+    seed = walks.walk_seed(torch.Generator(device=dev).manual_seed(7))
+    tx = walks.sample_walks_for_nodes(graph, train, seed, wcfg.n_walkers,
+                                      wcfg.p_halt, wcfg.l_max)
+
+    def solve():
+        k1 = jlt.jlt_features(tx, f, torch.Generator(device=dev).manual_seed(3), m, n)
+        return jlt.woodbury_solve(k1, s2, y)
+
+    got, wall, peak = timed_call(solve, dev)
+    warm = timed_call(solve, dev)[1]
+    counts = counts_now()
+    gate_counts("jlt", counts, ("walk_sampler", "ell_spmv"))
+    wide = PATH_SHAPES["jlt"]["ell_spmv"]
+    expect(wide.get((MAIN["n_train"], wcfg.slots, m), 0) > 0,
+           f"jlt: no ell_spmv launch at R = {m}: {wide}")
+    want = cg_solve(mll.make_h_operator(tx, f, s2, n), y, tol=1e-6, max_iters=2000).x
+    corr_main = float(np.corrcoef(want.cpu().numpy(), got.cpu().numpy())[0, 1])
+    expect(bool(torch.isfinite(got).all()), "jlt at N = 10⁶: non-finite solution")
+    print(f"[jlt] N = {n}, T = {MAIN['n_train']}, m = {m} (G [{n}, {m}] "
+          f"{n * m * 4 / 2**30:.2f} GiB): correlation with CG {corr_main:.4f}; first "
+          f"{wall * 1e3:.1f} ms, warm {warm * 1e3:.1f} ms, max_memory_allocated "
+          f"{mib(peak)} MiB")
+    return dict(counts=counts, corr_small=corr, corr_main=corr_main, first_s=wall,
+                warm_s=warm, peak=peak)
+
+
+OBS_SPANS = ("walks.sample", "posterior.mean", "posterior.pathwise",
+             "posterior.pathwise_chunked", "mll.fit_chunk", "serving.ingest",
+             "serving.observe_batch", "serving.wave", "serving.thompson_draw",
+             "bo.draw")
+
+
+def obs_workload(dev) -> None:
+    """The main posterior calls, one fit chunk, one serving wave and one BO
+    round (the incremental loop's first round, with its refit)."""
+    import torch
+
+    from repro_torch import serving, solvers
+    from repro_torch.bo import thompson
+    from repro_torch.core import modulation
+    from repro_torch.gp import mll
+    from repro_torch.graphs import signals
+
+    _, calls = path_calls(MAIN, dev, dev)
+    for _, fn in calls:
+        fn()
+    _, trace_x, mod, y, _ = fit_problem(MAIN, dev)
+    mll.fit_hyperparams(trace_x, mod, y, MAIN["n_nodes"],
+                        torch.Generator(device=dev).manual_seed(4),
+                        steps=FIT["chunk"], chunk=FIT["chunk"],
+                        strategy=solvers.MLL_DEFAULT)
+    calls, st, (_, _, _, nodes) = serving_calls(SERVE, dev)
+    dict(calls)["ingest"]()
+    dict(calls)["observe x3"]()
+    loop = serving.GPServeLoop(st["state"], batch=SERVE["batch"])
+    loop.run([serving.GPRequest(nodes=nodes["engine"][:SERVE["batch"]])])
+    graph, wcfg = st["state"].graph, st["state"].cfg
+    truth = signals.smooth_periodic_ring(SERVE["n_nodes"], seed=1)
+    rng = np.random.default_rng(3)
+    thompson.thompson_sampling_incremental(
+        graph, wcfg, modulation.diffusion(l_max=wcfg.l_max),
+        lambda idx: truth[np.asarray(idx)] + 0.1 * rng.standard_normal(len(idx)),
+        17, n_init=BO["n_init"], n_steps=1, refit_every=BO["refit_every"],
+        refit_steps=BO["refit_steps"], noise_std=0.1,
+        n_candidates=BO["n_candidates"])
+    sync(dev)
+
+
+def phase_obs(dev) -> dict:
+    """The obs workload under ``obs.recording(chiprun_out/obs.jsonl)``:
+    the record passes ``validate``, every expected span is there, the
+    ``walks.rows_sampled`` counters equal the rows of the walk kernel's
+    launches, and the ``solver.cg`` histogram counts every solve made.
+    Then the same workload with obs disabled: nothing recorded, nothing
+    written."""
+    from repro_torch import obs, solvers
+    from repro_torch.obs import report
+
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    path = out_dir / "obs.jsonl"
+    path.unlink(missing_ok=True)
+    solves = {"n": 0}
+    real_solve = solvers.solve
+
+    def counted(*a, **k):
+        solves["n"] += 1
+        return real_solve(*a, **k)
+
+    reset_counts()
+    solvers.solve = counted
+    try:
+        t0 = time.perf_counter()
+        with obs.recording(str(path)):
+            obs_workload(dev)
+        wall_on = time.perf_counter() - t0
+    finally:
+        solvers.solve = real_solve
+    counts = counts_now()
+    gate_counts("obs", counts, ("walk_sampler", "ell_spmv", "ell_spmv_t",
+                                "khat_fused", "gram_block"))
+    errors = report.validate(str(path))
+    expect(not errors, f"obs record invalid: {errors[:5]}")
+    events = report.read_events(str(path))
+    metrics = events[-1]["metrics"]
+    spans = {e["name"] for e in events if e["type"] == "span"}
+    missing = [s for s in OBS_SPANS if s not in spans]
+    expect(not missing, f"obs record lacks spans {missing}")
+    rows_counted = sum(v for k, v in metrics["counters"].items()
+                       if k.startswith("walks.rows_sampled{"))
+    rows_launched = sum(m * c for (m, _), c in PATH_SHAPES["obs"]["walk_sampler"].items())
+    expect(rows_counted == rows_launched,
+           f"walks.rows_sampled {rows_counted} != rows launched {rows_launched}")
+    cg_count = metrics["histograms"]["solver.cg.iters"]["count"]
+    expect(cg_count == solves["n"] > 0,
+           f"solver.cg.iters count {cg_count} != {solves['n']} solves")
+    print(f"[obs] {path.relative_to(ROOT)}: {len(events)} events, valid; "
+          f"{len(spans)} span names ({', '.join(sorted(spans))}); "
+          f"walks.rows_sampled {rows_counted:.0f} = rows of the walk kernel's "
+          f"launches; solver.cg.iters count {cg_count} = {solves['n']} solves; "
+          f"{wall_on:.2f} s recorded")
+    print(obs.summary(metrics))
+
+    # Disabled: the same workload records nothing and writes nothing.
+    obs.REGISTRY.reset()
+    size = path.stat().st_size
+    files = sorted(out_dir.iterdir())
+    t0 = time.perf_counter()
+    obs_workload(dev)
+    wall_off = time.perf_counter() - t0
+    snap = obs.REGISTRY.snapshot()
+    expect(not obs.enabled(), "obs enabled after the recording")
+    expect(not any(snap.values()), f"disabled obs recorded {snap}")
+    expect(path.stat().st_size == size, "disabled obs wrote to the record")
+    expect(sorted(out_dir.iterdir()) == files, "disabled obs wrote a file")
+    # What the disabled call sites cost: the workload with every obs entry
+    # point replaced by a no-op, in turns with the disabled runs.
+    walls = {"disabled": [wall_off], "stubbed": []}
+    for mode in ("stubbed", "disabled", "stubbed"):
+        with obs_stubbed(mode == "stubbed"):
+            t0 = time.perf_counter()
+            obs_workload(dev)
+            walls[mode].append(time.perf_counter() - t0)
+    off, stub = (float(np.median(walls[k])) for k in ("disabled", "stubbed"))
+    print(f"[obs] disabled: the same workload in {wall_off:.2f} s (recorded "
+          f"{wall_on:.2f} s); registry empty, record unchanged ({size} bytes); "
+          f"disabled {off:.3f} s against {stub:.3f} s with the obs entry points "
+          f"stubbed out (medians of 2, in turns: "
+          + ", ".join(f"{k} " + "/".join(f"{w:.3f}" for w in v)
+                      for k, v in walls.items()) + ")")
+    return dict(counts=counts, events=len(events), wall_on=wall_on,
+                wall_off=off, wall_stub=stub)
+
+
+@contextlib.contextmanager
+def obs_stubbed(on: bool):
+    """Replace every obs entry point the hot paths call by a no-op (when
+    ``on``): the workload as if it carried no instrumentation."""
+    from repro_torch import obs
+    from repro_torch.obs import registry, spans, taps
+
+    if not on:
+        yield
+        return
+
+    @contextlib.contextmanager
+    def no_span(*a, **k):
+        yield spans._NULL
+
+    def noop(*a, **k):
+        return None
+
+    saved = [(m, n, getattr(m, n)) for m, names in (
+        (obs, ("span", "inc", "gauge", "observe", "emit_event", "tap",
+               "enabled")),
+        (registry, ("enabled",)), (taps, ("tap", "tap_dict", "count")))
+        for n in names]
+    for m, n, _ in saved:
+        setattr(m, n, no_span if n == "span" else
+                (lambda: False) if n == "enabled" else noop)
+    try:
+        yield
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+# --------------------------------------------------------------------------
 # Phase 5: timing at the main-path shapes
 # --------------------------------------------------------------------------
 
@@ -2294,7 +2895,9 @@ def phase_timing(dev, results: dict) -> list[dict]:
                    results["serving"]["counts"],
                    *(results["bo"][e]["counts"] for e in ("incremental",
                                                           "refit-chunked")),
-                   results["solvers"]["counts"], results["lm"]["counts"]]
+                   results["solvers"]["counts"], results["lm"]["counts"],
+                   *(results[p]["counts"] for p in ("baselines", "svgp", "jlt",
+                                                     "obs"))]
     counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     nodes = torch.arange(n, dtype=torch.int32, device=dev)
     wkw = dict(n_walkers=wcfg.n_walkers, p_halt=wcfg.p_halt, l_max=wcfg.l_max)
@@ -2316,7 +2919,8 @@ def phase_timing(dev, results: dict) -> list[dict]:
 
     # 1. Walk sampling at its three shapes; then the monolithic trace again
     # for the products below.
-    rows.append(timing_walks(dev, graph, seed, counts["walk_sampler"]))
+    rows.append(timing_walks(dev, graph, seed, counts["walk_sampler"],
+                             extra=results["parity-baselines"]["walk_sampler"]))
     got = wops.walk_sample(*gargs, **wkw)
     k = wcfg.slots
     trace = walks.WalkTrace(*got)
@@ -2347,6 +2951,7 @@ def phase_timing(dev, results: dict) -> list[dict]:
             timing_spmv(dev, "chunk", vals[:chunk], cols[:chunk], w, 100),
             timing_spmv(dev, "chunk", vals_w, wide.cols, w, 100),
             timing_spmv(dev, "chunk", vals_w, wide.cols, w[:, 0].contiguous(), 100)]
+    spmv += results["parity-baselines"]["ell_spmv"]
     del wide, vals_w
     head = spmv[0]
     row("ell_spmv", head["ms"], head["plain_ms"], (head["max_abs_err"], head["rel"]),
@@ -2444,7 +3049,8 @@ def phase_timing(dev, results: dict) -> list[dict]:
                                        counts["woodbury_apply"])
     rows.append(wood)
     khat_row = next(x for x in rows if x["name"] == "khat_fused")
-    khat_row["shapes"] = khat_shapes + [solvers_cg]
+    khat_row["shapes"] = khat_shapes + [solvers_cg,
+                                        results["baselines"]["khat_shape"]]
     rows.append(timing_flash(dev, counts["flash_attention"]))
     rows.append(timing_rmsnorm(dev, counts["rmsnorm"]))
     return rows
@@ -2503,47 +3109,56 @@ def shapes_summed(name: str) -> dict[str, int]:
     return total
 
 
-def timing_walks(dev, graph, seed: int, launches: int) -> dict:
-    """walk_sampler at WALK_SHAPES: bit-equal to the plain version for every
-    scheme, device time as graph replays (few: a replayed graph keeps every
-    call's outputs) and eager loops, the plain version's time, and the
-    bound: the outputs written once and the adjacency row and degree of
-    each node the walks visit (counted from this run's cols)."""
+def walk_shape(dev, graph, seed: int, label: str, cfg: dict, m: int,
+               reps: int) -> dict:
+    """walk_sampler over the first ``m`` nodes of ``graph``: bit-equal to
+    the plain version for every scheme, device time as graph replays (few:
+    a replayed graph keeps every call's outputs) and an eager loop, the
+    plain version's time, and the bound: the outputs written once and the
+    adjacency row and degree of each node the walks visit (counted from
+    this run's cols)."""
     import torch
 
     from repro_torch.kernels.walk_sampler import ops, ref, rng
 
     d = graph.max_deg
+    nodes = torch.arange(m, dtype=torch.int32, device=dev)
+    kw = dict(n_walkers=cfg["n_walkers"], p_halt=cfg["p_halt"], l_max=cfg["l_max"])
+    args = (graph.neighbors, graph.weights, graph.deg, nodes, seed)
+    for scheme in rng.SCHEMES:
+        got = ops.walk_sample(*args, **kw, scheme=scheme)
+        want = ref.walk_sample_ref(*args, **kw, scheme=scheme)
+        expect(all(torch.equal(a, b) for a, b in zip(got, want)),
+               f"walk_sampler {label}: {scheme} differs from the plain version")
+        if scheme == "iid":
+            seen = torch.zeros(graph.n_nodes, dtype=torch.bool, device=dev)
+            seen[got[0].reshape(-1).long()] = True
+            visited = int(seen.sum())
+            del seen
+        del got, want
+    k = cfg["n_walkers"] * (cfg["l_max"] + 1)
+    fn = lambda: ops.walk_sample(*args, **kw)   # noqa: E731
+    ms, eager = graph_ms(fn, reps), cuda_ms(fn, max(reps, 5))
+    pms = cuda_ms(lambda: ref.walk_sample_ref(*args, **kw), 2, warmup=1)
+    b = bound(3 * m * k * 4 + m * 4 + visited * (d * 8 + 4), m * k * 6)
+    print(f"[timing] walk_sampler {label} [{m}, {k}] ({cfg['n_walkers']} walkers, "
+          f"l_max {cfg['l_max']}): kernel {ms:.4f} ms (graph; eager loop "
+          f"{eager:.4f} ms), plain {pms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
+          f"{visited} nodes visited), bit-equal for {len(rng.SCHEMES)} schemes")
+    torch.cuda.empty_cache()
+    return dict(shape=[m, k], ms=ms, eager_ms=eager, plain_ms=pms,
+                bound_ms=b[0], bound_by=b[1], visited=visited, max_abs_err=0.0)
+
+
+def timing_walks(dev, graph, seed: int, launches: int, extra=()) -> dict:
+    """walk_sampler at WALK_SHAPES (see :func:`walk_shape`), then the
+    shapes ``extra`` that other phases measured."""
     shapes = []
     for label, cfg, m in WALK_SHAPES:
-        nodes = torch.arange(m, dtype=torch.int32, device=dev)
-        kw = dict(n_walkers=cfg["n_walkers"], p_halt=cfg["p_halt"], l_max=cfg["l_max"])
-        args = (graph.neighbors, graph.weights, graph.deg, nodes, seed)
-        for scheme in rng.SCHEMES:
-            got = ops.walk_sample(*args, **kw, scheme=scheme)
-            want = ref.walk_sample_ref(*args, **kw, scheme=scheme)
-            expect(all(torch.equal(a, b) for a, b in zip(got, want)),
-                   f"walk_sampler {label}: {scheme} differs from the plain version")
-            if scheme == "iid":
-                seen = torch.zeros(graph.n_nodes, dtype=torch.bool, device=dev)
-                seen[got[0].reshape(-1).long()] = True
-                visited = int(seen.sum())
-                del seen
-            del got, want
         k = cfg["n_walkers"] * (cfg["l_max"] + 1)
-        fn = lambda: ops.walk_sample(*args, **kw)   # noqa: E731
         reps = 40 if m < graph.n_nodes else (5 if k <= 48 else 3)
-        ms, eager = graph_ms(fn, reps), cuda_ms(fn, max(reps, 5))
-        pms = cuda_ms(lambda: ref.walk_sample_ref(*args, **kw), 2, warmup=1)
-        b = bound(3 * m * k * 4 + m * 4 + visited * (d * 8 + 4), m * k * 6)
-        print(f"[timing] walk_sampler {label} [{m}, {k}] ({cfg['n_walkers']} walkers, "
-              f"l_max {cfg['l_max']}): kernel {ms:.4f} ms (graph; eager loop "
-              f"{eager:.4f} ms), plain {pms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
-              f"{visited} nodes visited), bit-equal for {len(rng.SCHEMES)} schemes")
-        shapes.append(dict(shape=[m, k], ms=ms, eager_ms=eager, plain_ms=pms,
-                           bound_ms=b[0], bound_by=b[1], visited=visited,
-                           max_abs_err=0.0))
-        torch.cuda.empty_cache()
+        shapes.append(walk_shape(dev, graph, seed, label, cfg, m, reps))
+    shapes += list(extra)
     head = shapes[0]
     by_shape = shapes_summed("walk_sampler")
     print(f"[timing] walk_sampler launches by (M, K) over the paths: {json.dumps(by_shape)}")
@@ -2972,6 +3587,11 @@ def main() -> int:
         ("bo", lambda: phase_bo(dev)),
         ("solvers", lambda: phase_solvers(dev)),
         ("lm", lambda: phase_lm(dev)),
+        ("parity-baselines", lambda: check_baseline_kernels(dev)),
+        ("baselines", lambda: phase_baselines(dev)),
+        ("svgp", lambda: phase_svgp(dev)),
+        ("jlt", lambda: phase_jlt(dev)),
+        ("obs", lambda: phase_obs(dev)),
     ]
     results = {}
     for name, fn in phases:

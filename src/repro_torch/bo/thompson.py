@@ -25,10 +25,13 @@ resolved ONCE per run, on the first refit round's operator, as the JAX loops
 do: T is the static buffer capacity and later rounds only flip mask slots,
 so the measured rank keeps its meaning.
 
-Not in the port yet: ``checkpoint_cb`` resume through the checkpoint
-manager (a ``checkpoint_cb`` callable is still called after every round,
-and ``state=`` resumes from a :class:`BOState`) and the obs spans and
-counters (ROADMAP Queue 1 #5).
+Observability (when ``obs`` is enabled): each round's draw is a
+``bo.draw`` span, and each round bumps ``bo.rounds`` and
+``bo.observations`` and sets the ``bo.incumbent_best`` (and, with
+``f_max``, ``bo.incumbent_regret``) gauges.  Not in the port yet:
+``checkpoint_cb`` resume through the checkpoint manager (a
+``checkpoint_cb`` callable is still called after every round, and
+``state=`` resumes from a :class:`BOState`).
 """
 from __future__ import annotations
 
@@ -38,7 +41,7 @@ from typing import Callable
 import numpy as np
 import torch
 
-from .. import solvers
+from .. import obs, solvers
 from ..core import features, walks
 from ..core.modulation import Modulation
 from ..core.walks import DEFAULT_CHUNK, WalkConfig, WalkTrace
@@ -143,8 +146,13 @@ def _record_round(state: BOState, picks, ys, f_max, checkpoint_cb, t):
         state.x_buf[state.count] = x_t
         state.y_buf[state.count] = float(y_t)
         state.count += 1
+    obs.inc("bo.observations", len(picks))
+    obs.inc("bo.rounds")
     if f_max is not None:
-        state.regret.append(float(f_max - state.y_obs.max()))
+        regret = float(f_max - state.y_obs.max())
+        state.regret.append(regret)
+        obs.gauge("bo.incumbent_regret", regret)
+    obs.gauge("bo.incumbent_best", float(state.y_obs.max()))
     state.iteration = t + 1
     if checkpoint_cb is not None:
         checkpoint_cb(state)
@@ -259,16 +267,19 @@ def thompson_sampling(
         f = mod(state.params["mod"])
         s2 = mll.noise_var(state.params)
         gen = _generator(seed, dev, _DRAW, t)
-        if chunked:
-            samples = posterior.pathwise_samples_chunked(
-                graph, x_all, f, s2, y_n, gen, walk_seed, walk, chunk=chunk,
-                n_samples=batch_size, obs_mask=mask, strategy=sample_strategy,
-            )
-        else:
-            samples = posterior.pathwise_samples(
-                trace, x_all, f, s2, y_n, gen, n_samples=batch_size,
-                obs_mask=mask, strategy=sample_strategy,
-            )
+        with obs.span("bo.draw", round=t, mode="pathwise") as sp:
+            if chunked:
+                samples = posterior.pathwise_samples_chunked(
+                    graph, x_all, f, s2, y_n, gen, walk_seed, walk,
+                    chunk=chunk, n_samples=batch_size, obs_mask=mask,
+                    strategy=sample_strategy,
+                )
+            else:
+                samples = posterior.pathwise_samples(
+                    trace, x_all, f, s2, y_n, gen, n_samples=batch_size,
+                    obs_mask=mask, strategy=sample_strategy,
+                )
+            sp.block_on(samples)
         # Mask observed nodes, pick one argmax per sample (Alg. 3 line 8).
         picks = _argmax_picks(samples.cpu().numpy(), np.arange(n),
                               state.x_obs, batch_size)
@@ -373,9 +384,12 @@ def thompson_sampling_incremental(
             cand_rng = np.random.default_rng((cand_seed, t))
             cand = cand_rng.choice(n, size=n_candidates,
                                    replace=False).astype(np.int32)
-        draws = serving.thompson_draw(
-            serve, cand, _generator(seed, dev, _DRAW, t), n_samples=batch_size,
-        ).cpu().numpy()                           # [q, batch_size]
+        with obs.span("bo.draw", round=t, mode="joint"):
+            # The copy to the host ends inside the span window.
+            draws = serving.thompson_draw(
+                serve, cand, _generator(seed, dev, _DRAW, t),
+                n_samples=batch_size,
+            ).cpu().numpy()                       # [q, batch_size]
         picks = _argmax_picks(draws, cand, np.isin(cand, state.x_obs),
                               batch_size)
         ys = np.asarray(objective(np.array(picks)), dtype=np.float32)

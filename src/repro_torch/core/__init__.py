@@ -1,5 +1,5 @@
 """Paper core: graph random features for scalable GP covariance estimation."""
-from . import features, linops, modulation, walks  # noqa: F401
+from . import features, kernels_exact, linops, modulation, walks  # noqa: F401
 from .features import (  # noqa: F401
     feature_values,
     khat_cross_matvec,

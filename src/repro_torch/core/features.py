@@ -101,6 +101,19 @@ def khat_diag_approx(trace: WalkTrace, f: torch.Tensor) -> torch.Tensor:
     return torch.sum(vals * vals, dim=1)
 
 
+def nnz_per_row(trace: WalkTrace) -> torch.Tensor:
+    """Number of distinct non-zero entries per feature row (Thm. 1
+    sparsity): the distinct columns among the slots with a non-zero load,
+    as int32.  Each row's live columns are sorted, so the cost is
+    O(M·K log K) and no [M, K, K] comparison block is built."""
+    marked = torch.where(trace.loads != 0, trace.cols.long(),
+                         torch.full_like(trace.cols, -1, dtype=torch.long))
+    s = torch.sort(marked, dim=1).values
+    new = torch.ones_like(s, dtype=torch.bool)
+    new[:, 1:] = s[:, 1:] != s[:, :-1]
+    return torch.sum(new & (s >= 0), dim=1).to(torch.int32)
+
+
 def khat_diag_exact(trace: WalkTrace, f: torch.Tensor) -> torch.Tensor:
     """Exact diag(K̂)_i = ‖φ(i)‖² accounting for duplicate columns; O(M·K²)."""
     vals = feature_values(trace, f)

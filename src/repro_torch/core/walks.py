@@ -9,7 +9,9 @@ step), so sampling N nodes at once, in chunks, or a subset of rows yields the
 same rows.
 
 The walk RNG is keyed on a **uint32 seed** (a Python int), not on a PRNG
-key: :func:`walk_seed` draws one from a ``torch.Generator``.
+key: :func:`walk_seed` draws one from a ``torch.Generator``.  Each
+sampling call is a ``walks.sample`` obs span, blocked on its trace; the
+row, walker and call counters are kept by ``kernels.dispatch.walk_sample``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ from typing import Iterator
 
 import torch
 
+from .. import obs
 from ..graphs.formats import Graph
 from ..kernels import dispatch
 from ..kernels.ell_spmv.index import ColumnIndex, column_index
@@ -126,7 +129,10 @@ def sample_walks(
     on the graph's device."""
     cfg = WalkConfig(n_walkers, p_halt, l_max, reweight, scheme)
     nodes = torch.arange(graph.n_nodes, dtype=torch.int32, device=graph.device)
-    return _sample(graph, nodes, seed, cfg)
+    with obs.span("walks.sample", rows=graph.n_nodes, scheme=scheme) as sp:
+        trace = _sample(graph, nodes, seed, cfg)
+        sp.block_on(trace)
+    return trace
 
 
 def sample_walks_for_nodes(
@@ -145,7 +151,11 @@ def sample_walks_for_nodes(
     nodes = nodes.to(graph.device)
     if nodes.numel() and not (0 <= int(nodes.min()) and int(nodes.max()) < graph.n_nodes):
         raise ValueError(f"nodes must lie in [0, {graph.n_nodes})")
-    return _sample(graph, nodes, seed, cfg)
+    with obs.span("walks.sample", rows=int(nodes.shape[0]),
+                  scheme=scheme) as sp:
+        trace = _sample(graph, nodes, seed, cfg)
+        sp.block_on(trace)
+    return trace
 
 
 def walk_chunks(
@@ -162,4 +172,8 @@ def walk_chunks(
     for start in range(0, n, chunk):
         nodes = torch.arange(start, min(start + chunk, n), dtype=torch.int32,
                              device=graph.device)
-        yield start, _sample(graph, nodes, seed, cfg)
+        with obs.span("walks.sample", rows=int(nodes.shape[0]),
+                      scheme=cfg.scheme, chunk_start=start) as sp:
+            trace = _sample(graph, nodes, seed, cfg)
+            sp.block_on(trace)
+        yield start, trace

@@ -11,22 +11,24 @@ except those listed under "left out" in --help.  It runs on the CUDA card
 engine is the *incremental* serving loop: one ServeState reused across the
 run, O(m²) Cholesky appends per observation, joint Thompson draws over a
 candidate set.  ``--engine refit`` runs the paper's from-scratch loop
-(materialised trace + pathwise sample per round).
+(materialised trace + pathwise sample per round).  ``--record PATH``
+streams a JSONL flight record of the run and prints the obs summary.
 """
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import obs
 from repro_torch.bo import baselines, thompson
 from repro_torch.core import modulation, walks
 from repro_torch.graphs import generators
 
 LEFT_OUT = ("left out of the port so far: --ckpt (checkpoint resume; the "
-            "loop's state= resume argument is ported), --record (flight "
-            "record)")
+            "loop's state= resume argument is ported)")
 
 
 def main(argv=None):
@@ -40,9 +42,18 @@ def main(argv=None):
                     default="incremental")
     ap.add_argument("--candidates", type=int, default=2048,
                     help="Thompson candidate set per round (incremental)")
+    ap.add_argument("--record", metavar="PATH", default=None,
+                    help="stream a JSONL flight record of the run")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    run(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    recording = (obs.recording(args.record) if args.record is not None
+                 else contextlib.nullcontext())
+    with recording:
+        run(args)
+    if args.record is not None:
+        print(f"\nflight record written to {args.record}")
+        print(obs.summary())
 
 
 def _sync(dev):

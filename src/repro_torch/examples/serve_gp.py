@@ -11,22 +11,25 @@ ServeState (cached train features + m×m Gram Cholesky), streams
 observations in via O(m²) incremental appends, refreshes α through the
 escalation ladder, then serves batched mean/variance queries — no CG and
 nothing N-scale in the hot path.  ``--fit-steps K`` runs K LML-ascent
-steps on the observations first.
+steps on the observations first.  ``--record PATH`` streams a JSONL flight
+record (spans, counters, CG taps) and prints the obs summary at exit;
+``python -m repro_torch.obs.report --validate PATH`` checks it.
 """
 import argparse
+import contextlib
 import time
 
 import numpy as np
 import torch
 
 from repro_torch import device as _device
+from repro_torch import obs
 from repro_torch import serving
 from repro_torch.core import modulation, walks
 from repro_torch.graphs import generators
 
 LEFT_OUT = ("left out of the port so far: --mesh (sharded serving and the "
-            "fleet), --record (flight record), and the REPRO_FAULTS chaos "
-            "mode")
+            "fleet) and the REPRO_FAULTS chaos mode")
 
 
 def main(argv=None):
@@ -41,9 +44,18 @@ def main(argv=None):
     ap.add_argument("--fit-steps", type=int, default=0,
                     help="LML-ascent steps on the observations before "
                          "serving (exercises the CG solve path)")
+    ap.add_argument("--record", metavar="PATH", default=None,
+                    help="stream a JSONL flight record of the run")
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
-    run(ap.parse_args(argv))
+    args = ap.parse_args(argv)
+    recording = (obs.recording(args.record) if args.record is not None
+                 else contextlib.nullcontext())
+    with recording:
+        run(args)
+    if args.record is not None:
+        print(f"\nflight record written to {args.record}")
+        print(obs.summary())
 
 
 def _sync(dev):

@@ -1,4 +1,4 @@
-from . import cg, mll, posterior, variational  # noqa: F401
+from . import cg, exact, mll, posterior, variational  # noqa: F401
 from ..solvers import (  # noqa: F401  (the Krylov strategy layer)
     SolveStrategy,
     cg_solve_fixed,

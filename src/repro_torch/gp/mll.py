@@ -22,6 +22,13 @@ under jit; ``"auto"`` is resolved once per fit, on the initial
 hyperparameters.  The LML *value* (not only its gradient) comes from
 :func:`exact_lml`: a strategy solve for yᵀH⁻¹y and stochastic Lanczos
 quadrature (solvers/slq.py) for log det H.
+
+Observability (when ``obs`` is enabled): each chunk of Adam steps is an
+``mll.fit_chunk`` span, and every step sets the ``mll.loss`` and
+``mll.sigma_n2`` gauges, lands in the ``mll.cg_iters`` histogram, bumps
+``mll.steps`` (and ``mll.cg_nonconverged``) and emits a ``fit_step`` event
+— all from the values the history already reads.  :func:`exact_lml` is an
+``mll.exact_lml`` span.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ from typing import Callable
 import torch
 
 from .. import device as _device
-from .. import solvers
+from .. import obs, solvers
 from ..core import linops
 from ..core.modulation import Modulation
 from ..core.walks import WalkTrace
@@ -257,19 +264,27 @@ def fit_hyperparams(
     done = 0
     while done < steps:
         this = min(chunk, steps - done)
-        params, opt_state, v, traces = _fit_chunk(
-            params, opt_state, generator, trace_x, y, obs_mask, v,
-            mod=mod, opt=opt, n_nodes=n_nodes, n_probes=n_probes,
-            strategy=strategy, chunk=this,
-        )
+        with obs.span("mll.fit_chunk", steps=this) as sp:
+            params, opt_state, v, traces = _fit_chunk(
+                params, opt_state, generator, trace_x, y, obs_mask, v,
+                mod=mod, opt=opt, n_nodes=n_nodes, n_probes=n_probes,
+                strategy=strategy, chunk=this,
+            )
+            sp.block_on(traces)
         loss_t, fit_t, s2_t, iters_t, conv_t = traces
         for j in range(this):
-            history.append({
-                "step": done + j + 1, "loss": float(loss_t[j]),
-                "datafit": float(fit_t[j]), "sigma_n2": float(s2_t[j]),
-                "cg_iters": int(iters_t[j]),
-                "cg_converged": bool(conv_t[j]),
-            })
+            rec = {"step": done + j + 1, "loss": float(loss_t[j]),
+                   "datafit": float(fit_t[j]), "sigma_n2": float(s2_t[j]),
+                   "cg_iters": int(iters_t[j]),
+                   "cg_converged": bool(conv_t[j])}
+            history.append(rec)
+            obs.gauge("mll.loss", rec["loss"])
+            obs.gauge("mll.sigma_n2", rec["sigma_n2"])
+            obs.observe("mll.cg_iters", rec["cg_iters"])
+            obs.inc("mll.steps")
+            if not rec["cg_converged"]:
+                obs.inc("mll.cg_nonconverged")
+            obs.emit_event({"type": "fit_step", **rec})
         done += this
     return FitResult(params=params, history=history)
 
@@ -324,9 +339,12 @@ def exact_lml(
         strategy = solvers.resolve_strategy(
             _lml_operator(trace_x, f, sigma_n2, n_nodes, obs_mask), strategy,
             generator=generator)
-    return _exact_lml(trace_x, f, sigma_n2, y, obs_mask, generator,
-                      strategy=strategy, n_probes=n_probes,
-                      slq_iters=slq_iters, n_nodes=n_nodes)
+    with obs.span("mll.exact_lml") as sp:
+        out = _exact_lml(trace_x, f, sigma_n2, y, obs_mask, generator,
+                         strategy=strategy, n_probes=n_probes,
+                         slq_iters=slq_iters, n_nodes=n_nodes)
+        sp.block_on(out)
+    return out
 
 
 def _exact_lml(trace_x, f, sigma_n2, y, obs_mask, generator, *, strategy,

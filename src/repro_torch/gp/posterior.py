@@ -17,6 +17,11 @@ unit-normal noise ``eps`` [T, S] from a ``torch.Generator`` (w first) and
 hand them to an inner function that takes them as arguments; the JAX
 package draws both inside its jit.  :func:`posterior_moments` is the
 closed-form Eq. 3/4 of a serving state (``serving/state.py``).
+
+Observability (when ``obs`` is enabled): :func:`posterior_mean`,
+:func:`pathwise_samples` and :func:`pathwise_samples_chunked` are the
+``posterior.mean``, ``posterior.pathwise`` and
+``posterior.pathwise_chunked`` spans, each blocked on its result.
 """
 from __future__ import annotations
 
@@ -24,7 +29,7 @@ import math
 
 import torch
 
-from .. import solvers
+from .. import obs, solvers
 from ..core import features, linops, walks
 from ..core.walks import DEFAULT_CHUNK, WalkConfig, WalkTrace
 from ..graphs.formats import Graph
@@ -83,10 +88,13 @@ def posterior_mean(
     noise = _noise(sigma_n2, obs_mask)
     if obs_mask is not None:
         y = y * obs_mask
-    trace_x = features.take_rows(trace, train_nodes)
-    h = make_h_operator(trace_x, f, noise, n)
-    alpha = solvers.solve(h, y, strategy).x
-    return linops.khat_cross(trace, trace_x, f, n).matvec(alpha)
+    with obs.span("posterior.mean") as sp:
+        trace_x = features.take_rows(trace, train_nodes)
+        h = make_h_operator(trace_x, f, noise, n)
+        alpha = solvers.solve(h, y, strategy).x
+        out = linops.khat_cross(trace, trace_x, f, n).matvec(alpha)
+        sp.block_on(out)
+    return out
 
 
 def pathwise_samples(
@@ -107,12 +115,14 @@ def pathwise_samples(
 
     Returns [N, n_samples]; with ``return_diagnostics=True`` also
     (iters_used, converged) of the inner CG solve."""
-    w, eps = _draw(generator, trace.n_nodes, train_nodes.shape[0], n_samples,
-                   trace.cols.device)
-    samples, iters, converged = _pathwise_samples(
-        trace, train_nodes, f, sigma_n2, y, w, eps, obs_mask,
-        _resolve(strategy, cg_tol, cg_iters),
-    )
+    with obs.span("posterior.pathwise", n_samples=n_samples) as sp:
+        w, eps = _draw(generator, trace.n_nodes, train_nodes.shape[0],
+                       n_samples, trace.cols.device)
+        samples, iters, converged = _pathwise_samples(
+            trace, train_nodes, f, sigma_n2, y, w, eps, obs_mask,
+            _resolve(strategy, cg_tol, cg_iters),
+        )
+        sp.block_on(samples)
     if return_diagnostics:
         return samples, iters, converged
     return samples
@@ -165,12 +175,15 @@ def pathwise_samples_chunked(
     The training-block solve is a strategy solve on the *materialised*
     Φ_x, so Nyström preconditioning works here even though the full Φ is
     lazy."""
-    w, eps = _draw(generator, graph.n_nodes, train_nodes.shape[0], n_samples,
-                   graph.device)
-    samples, iters, converged = _pathwise_samples_chunked(
-        graph, train_nodes, f, sigma_n2, y, w, eps, walk_seed, cfg, chunk,
-        obs_mask, _resolve(strategy, cg_tol, cg_iters),
-    )
+    with obs.span("posterior.pathwise_chunked", n_samples=n_samples,
+                  chunk=chunk) as sp:
+        w, eps = _draw(generator, graph.n_nodes, train_nodes.shape[0],
+                       n_samples, graph.device)
+        samples, iters, converged = _pathwise_samples_chunked(
+            graph, train_nodes, f, sigma_n2, y, w, eps, walk_seed, cfg, chunk,
+            obs_mask, _resolve(strategy, cg_tol, cg_iters),
+        )
+        sp.block_on(samples)
     if return_diagnostics:
         return samples, iters, converged
     return samples

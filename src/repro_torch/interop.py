@@ -38,8 +38,12 @@ def trace_from_numpy(cols, loads, lens, device=None) -> WalkTrace:
 
 
 def params_from_numpy(params: dict, device=None) -> dict:
-    """The nested hyperparameter dict of ``gp/mll.py::init_hyperparams``
-    (``{"mod": {...}, "log_sigma_n": ...}``) as float32 tensors."""
+    """A nested dict of float32 parameters as tensors of the same layout:
+    the hyperparameters of ``gp/mll.py::init_hyperparams`` (``{"mod":
+    {...}, "log_sigma_n": ...}``), those of
+    ``gp/exact.py::fit_exact_diffusion`` (``log_beta``, ``log_sigma_f``,
+    ``log_sigma_n``) and the SVGP dict of ``gp/variational.py::init_svgp``
+    (``mod``, ``mu``, ``log_scale_diag``, ``chol_lower``)."""
     dev = _device.resolve(device)
 
     def conv(x):

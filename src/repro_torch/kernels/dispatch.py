@@ -11,11 +11,18 @@ vals/cols are the ELL payload ([M, K]); the dense operand is [N] or [N, R].
 Every product is differentiable in its values and its dense operand
 (autograd Functions in the kernels' ``ops.py``); the casts here stay
 differentiable around them.
+
+:func:`walk_sample` counts its rows, walkers and calls into the obs
+registry (when enabled) with the labels ``{"scheme", "backend"}`` of the
+JAX package.  With no backend registry here, ``backend`` holds the device
+type of the call's tensors — ``"cuda"`` (the kernel) or ``"cpu"`` (the
+plain version) — everywhere the port writes that label.
 """
 from __future__ import annotations
 
 import torch
 
+from ..obs import taps as _obs_taps
 from .ell_spmv import ops as ell_ops
 from .flash_attention import ops as flash_ops
 from .gram_block import ops as gram_ops
@@ -85,6 +92,12 @@ def walk_sample(neighbors, weights, deg, nodes, seed: int, *, n_walkers: int,
 
     The counter RNG is keyed on the absolute start-node id, so the result
     does not depend on how ``nodes`` is chunked across calls."""
+    labels = {"scheme": scheme, "backend": nodes.device.type}
+    rows = int(nodes.shape[0])
+    _obs_taps.count("walks.rows_sampled", n=rows, labels=labels)
+    _obs_taps.count("walks.walkers_launched", n=rows * int(n_walkers),
+                    labels=labels)
+    _obs_taps.count("walks.sample_calls", labels=labels)
     return walk_ops.walk_sample(
         neighbors.contiguous(), weights.to(torch.float32).contiguous(),
         deg.contiguous(), nodes.to(torch.int32).contiguous(), seed,

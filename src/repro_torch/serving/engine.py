@@ -13,7 +13,13 @@ request spans several waves of a batch-64 engine.
 draw over a candidate set.  Random normals come from an explicit
 ``torch.Generator`` (drawn on its device); :func:`_joint_draw_tail` takes
 them as an argument so that a test can feed it the JAX package's draw.
-Not in this slice: the obs counters and spans, and the fault-plan scope.
+
+Observability (when ``obs`` is enabled): admission and backpressure
+counters, the ``serving.queue_depth`` gauge, a ``serving.wave`` span per
+wave (its copy to the host inside the window), ``serving.queries_served``
+and the ``serving.wave.fill`` histogram, a ``serving.thompson_draw`` span,
+and the ``serving.thompson.cov_fallback`` tap.  Not in this slice: the
+fault-plan scope.
 """
 from __future__ import annotations
 
@@ -23,6 +29,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import dispatch
 from .state import ServeState, _cross_solve, _moments_impl
 from .update import _as_tensor, cholesky_checked
@@ -101,10 +108,12 @@ class GPServeLoop:
             try:
                 slot = self.slots.index(None)
             except ValueError:
+                obs.inc("serving.admit.rejects")
                 return False
             self.slots[slot] = (req, req.admitted)
             self.slot_nodes[slot] = req.nodes[req.admitted]
             req.admitted += 1
+            obs.inc("serving.admit.accepts")
         return True
 
     def submit(self, req: GPRequest) -> bool:
@@ -112,8 +121,10 @@ class GPServeLoop:
         the bounded pending queue is full (the caller backs off)."""
         if (self.max_pending is not None
                 and len(self.pending) >= self.max_pending):
+            obs.inc("serving.submit.rejects")
             return False
         self.pending.append(req)
+        obs.gauge("serving.queue_depth", len(self.pending))
         return True
 
     # -- batched query step --------------------------------------------------
@@ -122,9 +133,15 @@ class GPServeLoop:
         live = [i for i, s in enumerate(self.slots) if s is not None]
         if not live:
             return 0
-        nodes = torch.from_numpy(self.slot_nodes).to(self.state.device)
-        mean, var, draw = _engine_step(self.state, nodes, self.generator)
-        mean, var, draw = (x.cpu().numpy() for x in (mean, var, draw))
+        fill = len(live) / self.batch
+        # The copy to the host waits for the wave, so the span times
+        # dispatch + execution without an extra synchronisation.
+        with obs.span("serving.wave", fill=fill, served=len(live)):
+            nodes = torch.from_numpy(self.slot_nodes).to(self.state.device)
+            mean, var, draw = _engine_step(self.state, nodes, self.generator)
+            mean, var, draw = (x.cpu().numpy() for x in (mean, var, draw))
+        obs.inc("serving.queries_served", len(live))
+        obs.observe("serving.wave.fill", fill)
         for i in live:
             req, pos = self.slots[i]
             req.mean[pos] = mean[i]
@@ -143,6 +160,7 @@ class GPServeLoop:
         while self.pending or any(s is not None for s in self.slots):
             while self.pending and self.admit(self.pending[0]):
                 self.pending.popleft()
+            obs.gauge("serving.queue_depth", len(self.pending))
             n = self.step()
             served += n
             if progress:
@@ -168,9 +186,13 @@ def thompson_draw(
     q×q Cholesky: O(q·m² + q³), no CG, nothing N-scale.  The standard
     normals come from ``generator``."""
     nodes = _as_tensor(nodes, torch.int32, state.device)
-    trace_q, vals_q, mean, v = _cross_solve(state, nodes)
-    eps = _normals(generator, (nodes.shape[0], n_samples), state.device)
-    return _joint_draw_tail(trace_q, vals_q, mean, v, eps)
+    with obs.span("serving.thompson_draw", q=int(nodes.shape[0]),
+                  n_samples=n_samples) as sp:
+        trace_q, vals_q, mean, v = _cross_solve(state, nodes)
+        eps = _normals(generator, (nodes.shape[0], n_samples), state.device)
+        out = _joint_draw_tail(trace_q, vals_q, mean, v, eps)
+        sp.block_on(out)
+    return out
 
 
 def _joint_draw_tail(trace_q, vals_q, mean, v, eps):
@@ -185,6 +207,8 @@ def _joint_draw_tail(trace_q, vals_q, mean, v, eps):
     l_post, ok = cholesky_checked(cov + jitter * eye)
     # Guarded draw: if the jittered Cholesky still fails, fall back to
     # independent marginal draws diag(sqrt(clamped var)) instead of NaN.
+    if obs.enabled():
+        obs.tap("serving.thompson.cov_fallback", ~ok, kind="counter")
     marginal = torch.diag(torch.sqrt(torch.clamp(torch.diagonal(cov), min=0.0)))
     l_post = torch.where(ok, l_post, marginal)
     return mean[:, None] + l_post @ eps

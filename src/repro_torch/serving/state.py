@@ -20,8 +20,9 @@ N-scale; N enters only through the lazy walk sampling of the q query rows.
 ``count`` and the health flags are 0-d int32 tensors on the state's device,
 as in the JAX package, so appends run without reading anything back to the
 host; ``seed`` is the uint32 walk seed (a Python int), the identity of Φ.
-Not in this slice: the obs taps and the fault-injection sites the JAX
-serving code threads through.
+The ``serving.var_clamped`` obs tap counts clamped variances when obs is
+enabled.  Not in this slice: the fault-injection sites the JAX serving code
+threads through.
 """
 from __future__ import annotations
 
@@ -29,6 +30,7 @@ import dataclasses
 
 import torch
 
+from .. import obs
 from ..core import features
 from ..core.walks import WalkConfig, WalkTrace
 from ..graphs.formats import Graph
@@ -206,9 +208,13 @@ def _cross_solve(state: ServeState, query_nodes):
 
 def _moments_tail(state: ServeState, trace_q: WalkTrace, mean, v):
     """Marginal variance from the whitened cross-block.  K̂ is PSD, so a
-    negative variance is float32 cancellation: clamped to zero."""
+    negative variance is float32 cancellation: clamped to zero, and the
+    clamps counted by the ``serving.var_clamped`` tap (when obs is on)."""
     k_qq = features.khat_diag_exact(trace_q, state.f)
     var_raw = k_qq - torch.sum(v * v, dim=0)
+    if obs.enabled():
+        obs.tap("serving.var_clamped", torch.sum(var_raw < 0),
+                     kind="counter")
     return mean, torch.clamp(var_raw, min=0.0)
 
 

@@ -21,9 +21,16 @@ device (masked writes, no host read inside the loop).
 ``torch.linalg.cholesky`` raises where ``jnp.linalg.cholesky`` returns NaN,
 so the factorisations use ``torch.linalg.cholesky_ex`` and treat a non-zero
 ``info`` or a non-finite factor as the failure the JAX jitter ladder tests
-for.  Not in this slice: the ``*_async`` (buffer-donating) variants, the
-``donate`` option of :func:`refit_alpha`, and the obs counters and
-fault-injection sites.
+for.
+
+Observability (when ``obs`` is enabled): the ``serving.observe_batch``,
+``serving.evict``, ``serving.ingest``, ``serving.refit`` and
+``serving.refit_alpha`` spans, and the ``serving.observations``,
+``serving.observe.*`` and ``serving.refit.fallback`` counters of the JAX
+package; the flag reads behind the overflow and rejection counters are
+made only then.  Not in this slice: the ``*_async`` (buffer-donating)
+variants, the ``donate`` option of :func:`refit_alpha`, the escalation
+counters of its ladder and the fault-injection sites.
 """
 from __future__ import annotations
 
@@ -32,7 +39,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import solvers
+from .. import obs, solvers
 from ..core import features
 from ..core.walks import WalkTrace
 from ..kernels import dispatch
@@ -188,13 +195,29 @@ def observe_batch(
                 "on_overflow='forget_oldest'/'reject' to degrade gracefully"
             )
         if on_overflow == "forget_oldest":
-            state = _evict_oldest(state, excess)
-    new = state
-    for i in range(nodes.shape[0]):
-        new = _append(new, nodes[i], ys[i])
-    new = dataclasses.replace(new, alpha=solve_chol(new.chol, new.y))
+            with obs.span("serving.evict", n=excess):
+                state = _evict_oldest(state, excess)
+            obs.inc("serving.observe.evictions", excess)
+    with obs.span("serving.observe_batch", n=int(nodes.shape[0])) as sp:
+        new = state
+        for i in range(nodes.shape[0]):
+            new = _append(new, nodes[i], ys[i])
+        if obs.enabled():
+            obs.tap("serving.observe.overflow", new.overflow - state.overflow,
+                    kind="counter")
+        new = dataclasses.replace(new, alpha=solve_chol(new.chol, new.y))
+        sp.block_on(new)
+    obs.inc("serving.observations", int(nodes.shape[0]))
+    if obs.enabled():
+        dropped = int(new.overflow) - int(state.overflow)
+        if dropped:
+            obs.inc("serving.observe.overflow", dropped)
+        rej = int(new.rejected) - int(state.rejected)
+        if rej:
+            obs.inc("serving.observe.rejected", rej)
     if auto_refit and int(new.needs_refit) > 0:
         # The incremental factor is running on jitter: refactorise.
+        obs.inc("serving.refit.fallback")
         new = refit(new)
     return new
 
@@ -308,17 +331,21 @@ def ingest(state: ServeState, nodes, ys) -> ServeState:
     pad = state.capacity - count
     nodes = torch.cat([nodes, nodes.new_zeros(pad)])
     ys = torch.cat([ys, ys.new_zeros(pad)])
-    trace = query_rows(state, nodes)
-    live = torch.arange(state.capacity, device=dev) < count
-    state = dataclasses.replace(
-        state,
-        nodes=torch.where(live, nodes, 0),
-        y=torch.where(live, ys, 0.0),
-        count=torch.full_like(state.count, count),
-        trace=WalkTrace(cols=trace.cols, loads=trace.loads * live[:, None],
-                        lens=trace.lens),
-    )
-    return _refit_impl(state)
+    with obs.span("serving.ingest", n=count) as sp:
+        trace = query_rows(state, nodes)
+        live = torch.arange(state.capacity, device=dev) < count
+        state = dataclasses.replace(
+            state,
+            nodes=torch.where(live, nodes, 0),
+            y=torch.where(live, ys, 0.0),
+            count=torch.full_like(state.count, count),
+            trace=WalkTrace(cols=trace.cols, loads=trace.loads * live[:, None],
+                            lens=trace.lens),
+        )
+        state = _refit_impl(state)
+        sp.block_on(state)
+    obs.inc("serving.observations", count)
+    return state
 
 
 def _with_hypers(state: ServeState, f=None, sigma_n2=None, y=None) -> ServeState:
@@ -341,7 +368,11 @@ def refit(state: ServeState, f=None, sigma_n2=None, y=None) -> ServeState:
     entry) or to swap the target buffer ``y`` (full capacity, dead slots
     zero).  The cached walk rows do not depend on ``f``: nothing is
     re-sampled."""
-    return _refit_impl(_with_hypers(state, f, sigma_n2, y))
+    state = _with_hypers(state, f, sigma_n2, y)
+    with obs.span("serving.refit") as sp:
+        state = _refit_impl(state)
+        sp.block_on(state)
+    return state
 
 
 # ---------------------------------------------------------------------------
@@ -410,10 +441,12 @@ def refit_alpha(
     state = _with_hypers(state, f, sigma_n2)
     rungs = _alpha_ladder(strategy)[:max_attempts] if escalate else [strategy]
     alpha = state.alpha
-    for s in rungs:
-        alpha, iters, converged = _refit_alpha_impl(state, alpha, s)
-        if converged:
-            break
+    with obs.span("serving.refit_alpha") as sp:
+        for s in rungs:
+            alpha, iters, converged = _refit_alpha_impl(state, alpha, s)
+            if converged:
+                break
+        sp.block_on(alpha)
     state = dataclasses.replace(state, alpha=alpha)
     if return_diagnostics:
         return state, iters, converged

@@ -13,8 +13,17 @@ quadrature (solvers/slq.py) and the spectral rank probe
 ``"none"``, ``"jacobi"``, ``"nystrom"`` (the pivoted-Cholesky Nyström
 preconditioner, applied by the Woodbury kernel) and ``"auto"`` (resolved to
 a measured rank by the spectral probe).  Not in the port yet:
-``escalate=True``, which raises NotImplementedError until
-``solvers/escalate.py`` is ported (ROADMAP Queue 1 #5).
+``escalate=True``, which raises NotImplementedError until the resilience
+half of ROADMAP Queue 1 #5 ports ``solvers/escalate.py``.
+
+Observability (when ``obs`` is enabled): every :func:`solve` records the
+``solver.cg`` tap (iterations, worst residual, convergence, with the
+strategy as metadata), and the loops record every 8th iteration's worst
+residual norm as ``solver.cg.resnorm_traj``.  The adaptive loop takes that
+value in the same device-to-host copy as its per-iteration stopping test;
+the fixed loop, which reads nothing inside, keeps the sampled norms on the
+device and reads them once after its last iteration.  Disabled, neither
+loop reads more than it did without obs.
 """
 from __future__ import annotations
 
@@ -22,7 +31,12 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from ..obs import registry as _obs
+from ..obs import taps as _obs_taps
 from .strategy import SolveStrategy
+
+_TRAJ = "solver.cg.resnorm_traj"
+_TRAJ_SAMPLE = 8
 
 
 class CGResult(NamedTuple):
@@ -85,6 +99,20 @@ def _safe_div(num, den, ok):
                        torch.zeros_like(num))
 
 
+def _keep_going(resnorm: torch.Tensor, thresh: torch.Tensor, it: int) -> bool:
+    """The adaptive loop's stopping test, any(‖r‖ > tol·‖b‖) — one host
+    read.  When obs samples this iteration's residual (every 8th after the
+    first), the worst norm rides in the same copy."""
+    going = torch.any(resnorm > thresh)
+    if it == 0 or not (_obs.enabled()
+                       and _obs.REGISTRY.tap_tick(_TRAJ, _TRAJ_SAMPLE)):
+        return bool(going)
+    flag, worst = torch.stack([going.to(resnorm.dtype),
+                               torch.max(resnorm)]).tolist()
+    _obs_taps.tap(_TRAJ, worst)
+    return bool(flag)
+
+
 def cg_solve(
     matvec: Callable[[torch.Tensor], torch.Tensor],
     b: torch.Tensor,
@@ -117,8 +145,8 @@ def cg_solve(
 
     x, res, z, p, rz = _init_state(matvec, b, x0, apply_m, dot)
     it = 0
-    while it < max_iters and bool(
-            torch.any(torch.sqrt(dot(res, res)) > thresh)):
+    while it < max_iters and _keep_going(torch.sqrt(dot(res, res)), thresh,
+                                         it):
         hp = matvec(p)
         php = dot(p, hp)
         alpha = _safe_div(rz, php, php > 0)
@@ -163,6 +191,7 @@ def cg_solve_fixed(
         alphas = b.new_zeros((iters, b.shape[1]))
         betas = torch.zeros_like(alphas)
         valid = torch.zeros_like(alphas, dtype=torch.bool)
+    traj = []   # sampled worst residual norms, read once after the loop
     for i in range(iters):
         hp = matvec(p)
         php = dot(p, hp)
@@ -177,6 +206,11 @@ def cg_solve_fixed(
         rz = rz_new
         if with_coeffs:
             alphas[i], betas[i], valid[i] = alpha, beta, active
+        if _obs.enabled() and _obs.REGISTRY.tap_tick(_TRAJ, _TRAJ_SAMPLE):
+            traj.append(torch.max(torch.sqrt(dot(res, res))))
+    if traj:
+        for worst in torch.stack(traj).tolist():
+            _obs_taps.tap(_TRAJ, worst)
     out = x[:, 0] if squeeze else x
     resnorm = torch.sqrt(dot(res, res))
     thresh = tol * torch.clamp(torch.sqrt(bnorm2), min=1e-30)
@@ -242,12 +276,14 @@ def solve(
     preconditioner is built from the f32 operator; ``matvec_dtype`` wraps
     only the CG matvec, and the rank actually used is reported as
     ``CGResult.precond_rank``.  ``escalate=True`` raises NotImplementedError
-    until the resilience slice ports solvers/escalate.py (ROADMAP Queue 1
-    #5)."""
+    until the resilience half of ROADMAP Queue 1 #5 ports
+    solvers/escalate.py."""
     if escalate:
         raise NotImplementedError(
-            "escalate=True comes with the observability and resilience slice "
-            "of the port (solvers/escalate.py, ROADMAP Queue 1 #5)"
+            "escalate=True comes with the port's resilience slice, the "
+            "second half of ROADMAP Queue 1 #5 (solvers/escalate.py, with "
+            "the fault hooks, the journal and the checkpoint manager); the "
+            "observability half is ported"
         )
     if strategy.preconditioner == "auto":
         from .nystrom import resolve_strategy
@@ -266,4 +302,32 @@ def solve(
     else:
         res = cg_solve_fixed(matvec, b, iters=strategy.max_iters, dot=dot,
                              precond=precond, x0=x0, tol=strategy.tol)
-    return res._replace(precond_rank=rank)
+    res = res._replace(precond_rank=rank)
+    _tap_solve(res, strategy)
+    return res
+
+
+def _tap_solve(res: CGResult, strategy: SolveStrategy) -> None:
+    """Per-solve diagnostics into the obs registry (no-op, and no device
+    read, when disabled): iters into the ``solver.cg.iters`` histogram,
+    all-columns convergence as a counter, the worst column's residual as a
+    gauge, with the solve configuration as tap metadata."""
+    if not _obs.enabled():
+        return
+    _obs_taps.tap_dict(
+        "solver.cg",
+        {
+            "iters": res.iters,
+            "resnorm_max": torch.max(res.resnorm),
+            "converged": torch.all(res.converged),
+        },
+        hist=("iters",),
+        meta={
+            "preconditioner": strategy.preconditioner,
+            "precond_rank": res.precond_rank,
+            "matvec_dtype": strategy.matvec_dtype,
+            "adaptive": strategy.adaptive,
+            "tol": strategy.tol,
+            "max_iters": strategy.max_iters,
+        },
+    )

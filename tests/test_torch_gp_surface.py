@@ -11,9 +11,8 @@ torch = pytest.importorskip("torch")
 import repro_torch.gp as tgp  # noqa: E402
 from repro_torch import solvers  # noqa: E402
 
-# Names of repro.gp whose modules the port has not ported yet (ROADMAP
-# Queue 1, baselines): gp/exact.py.
-NOT_PORTED = {"exact"}
+# Names of repro.gp whose modules the port has not ported yet: none.
+NOT_PORTED = set()
 
 
 def _public(module):
