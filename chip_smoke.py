@@ -132,7 +132,28 @@ non-zero exit and no result line):
                launches, and the solver.cg histogram counts every solve; the
                summary table; then the same calls with obs disabled record
                and write nothing.
- 15. timing    each kernel at the main-path shapes with CUDA events: kernel,
+ 15. resilience
+               at the serving width (ring(10⁶), K = 144, capacity 128): a
+               ResilientServer (journal, a checkpoint every 2 ops,
+               forget_oldest) under nan_payload 0.01, inf_payload 0.005,
+               chol_fail 0.05, cg_stall 1 takes five observe batches of 32
+               (the last past capacity), a forget and a refit(f·1.02), then
+               refit_alpha(escalate=True) and GPServeLoop(batch 64) over 512
+               nodes; gates: rejected = the appends _hash01 poisons (counted
+               on the host), a finite Cholesky, every query answered
+               finitely, the ladder resolved in one extra rung.  The same
+               ops in a child process under kill_at:5 exit 113 with 5
+               journalled ops; recover() from checkpoint + tail within 1e-5
+               of scale of an uninterrupted run on 256 nodes.  The escalated
+               Nyström solve on the solvers phase's block under cg_stall:1
+               (2 attempts, 1 resolved, within 1e-4 of "none") and cg_stall:9
+               (exhausted, the best iterate).  CheckpointManager on the
+               serving state (blocking, async, restore bit-equal) and a BO
+               run stopped after 3 rounds and resumed to 6 from its
+               checkpoint (finite regret).  Prints journal µs per op, save
+               and restore ms, recovery ms and ms per replayed event, query
+               p50/p99 with the plan and without, and each rung's ms.
+ 16. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
                (ell_spmv at the prior draw [10⁶, 48] and one chunk each of
                [65536, 48] and [65536, 144], u [10⁶, 16], and the K = 144
@@ -166,7 +187,7 @@ The new shapes of phase 10 and khat_fused's at phase 11's CG shape join
 their kernels' `shapes` lists in that line.
 
 Each path (main, fit, serving, each BO loop, solvers, lm, baselines, svgp,
-jlt, obs) is driven with every launch
+jlt, obs, each part of resilience) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
 runs was never launched; a kernel's `launches` in the result line is the
 sum over those runs.  walk_sampler's launches are also printed by (M, K),
@@ -267,6 +288,14 @@ SVGP = dict(n_nodes=2500, n_classes=7, p_in=0.045, p_out=0.012, n_walkers=500,
 # The JLT solver: the JAX test's width on grid2d(7, 7), and m = 1024 on the
 # posterior cell's training rows (G [10⁶, 1024] is 4 GiB).
 JLT = dict(m_small=4096, m_main=1024)
+# The resilience phase at the serving width: serve_gp's chaos plan over a
+# ResilientServer (journal, checkpoints every 2 ops, forget_oldest), five
+# observe batches of 32 nodes (the last past capacity 128), forget, refit;
+# kill_at 5 falls after the checkpoint of op 4 and before that of op 6.
+RESIL = dict(plan="nan_payload:0.01,inf_payload:0.005,chol_fail:0.05,cg_stall:1,seed:3",
+             seed=21, batches=5, batch=32, n_query=512, forget_slot=3,
+             checkpoint_every=2, kill_at=5, latency_rounds=3, journal_ops=1000,
+             bo_rounds=3)
 # woodbury_apply's timed shapes at T = 4000: ranks and RHS widths.
 WOOD_RANKS = (64, 128, 256)
 WOOD_COLS = (1, 9, 16)
@@ -2762,6 +2791,424 @@ def obs_stubbed(on: bool):
 
 
 # --------------------------------------------------------------------------
+# Phase 15: resilience
+# --------------------------------------------------------------------------
+
+
+def resilience_problem(dev):
+    """The resilience op stream at the serving width: the empty capacity-128
+    state of the serving phase, five observe batches of 32 nodes (160, so
+    the last batch runs past capacity), and the query nodes."""
+    from repro_torch import serving
+
+    graph, wcfg, f, seed, *_ = serving_problem(SERVE, dev)
+    empty = serving.init_state(graph, seed, f, SERVE["sigma_n2"],
+                               SERVE["capacity"], wcfg)
+    rng = np.random.default_rng(RESIL["seed"])
+    n_obs = RESIL["batches"] * RESIL["batch"]
+    nodes = rng.choice(SERVE["n_nodes"], n_obs + RESIL["n_query"],
+                       replace=False).astype(np.int32)
+    obs_nodes = nodes[:n_obs].reshape(RESIL["batches"], RESIL["batch"])
+    ys = rng.standard_normal(obs_nodes.shape).astype(np.float32)
+    return empty, obs_nodes, ys, nodes[n_obs:]
+
+
+def resilience_ops(srv, problem) -> None:
+    """The journalled op stream: five observe batches, one forget and one
+    refit(f·1.02) — seven kill points."""
+    empty, obs_nodes, ys, _ = problem
+    for nodes, y in zip(obs_nodes, ys):
+        srv.observe(nodes, y)
+    srv.forget(RESIL["forget_slot"])
+    srv.refit(f=empty.f * 1.02)
+
+
+_RESIL_CHILD = """
+import sys
+sys.path[:0] = [{src!r}, {root!r}]
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from repro_torch.resilience import ResilientServer
+
+chip_smoke.SERVE.update({serve!r})   # the parent's op stream, as it ran there
+chip_smoke.RESIL.update({resil!r})
+problem = chip_smoke.resilience_problem(torch.device({device!r}))
+srv = ResilientServer(problem[0], journal={jpath!r}, checkpoint_dir={cdir!r},
+                      checkpoint_every={every}, on_overflow="forget_oldest")
+chip_smoke.resilience_ops(srv, problem)
+raise SystemExit("kill_at never fired")
+"""
+
+
+def _escalation_counters(obs) -> dict:
+    c = obs.REGISTRY.snapshot()["counters"]
+    return {k: c.get(f"solver.escalation.{k}", 0)
+            for k in ("attempts", "resolved", "forced_stalls", "exhausted")}
+
+
+def _quantiles_ms(samples) -> str:
+    a = np.asarray(samples) * 1e3
+    return f"p50 {np.percentile(a, 50):.3f} ms, p99 {np.percentile(a, 99):.3f} ms"
+
+
+def phase_resilience(dev) -> dict:
+    """Fault injection, the escalation ladder, the journal, ResilientServer
+    and the checkpoint manager at the serving width (K = 144, capacity 128)
+    and on the solvers phase's clustered block (T = 4000)."""
+    import os
+    import tempfile
+
+    import torch
+
+    from repro_torch import obs, serving, solvers
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.resilience import (KILL_EXIT_CODE, Journal, ResilientServer,
+                                        faults, read_journal, recover)
+    from repro_torch.serving import update
+
+    total: dict = {}
+
+    def part(label, need, fn):
+        reset_counts()
+        out = fn()
+        sync(dev)
+        counts = counts_now()
+        gate_counts(label, counts, need)
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_resilience_")
+    try:
+        problem = resilience_problem(dev)
+        empty, obs_nodes, _, query = problem
+        plan = faults.parse_faults(RESIL["plan"])
+        print(f"[resilience] chaos plan [{plan.spec()}]")
+
+        # 1. Chaos serving: the journalled server under the plan, then the
+        # escalated refit_alpha and the engine over the query nodes.
+        def chaos():
+            jpath = os.path.join(tmp.name, "chaos.jsonl")
+            with faults.use_faults(plan):
+                t0 = time.perf_counter()
+                srv = ResilientServer(empty, journal=jpath,
+                                      checkpoint_dir=os.path.join(tmp.name, "chaos"),
+                                      checkpoint_every=RESIL["checkpoint_every"],
+                                      on_overflow="forget_oldest")
+                resilience_ops(srv, problem)
+                sync(dev)
+                ops_s = time.perf_counter() - t0
+                obs.REGISTRY.reset()
+                with obs.tap_scope(True):
+                    st = update.refit_alpha(srv.state, escalate=True,
+                                            return_diagnostics=True)
+                    esc = _escalation_counters(obs)
+                obs.REGISTRY.reset()
+                srv.state = st[0]
+                reqs = [serving.GPRequest(nodes=query[i:i + SERVE["req"]])
+                        for i in range(0, len(query), SERVE["req"])]
+                serving.GPServeLoop(srv.state, batch=SERVE["batch"]).run(reqs)
+            srv.close()
+            return srv, st, esc, reqs, ops_s
+
+        srv, (_, iters, conv), esc, reqs, ops_s = part(
+            "resilience chaos", ("walk_sampler", "gram_block"), chaos)
+        s = srv.state
+        poisoned = faults._hash01(torch.from_numpy(obs_nodes.reshape(-1)), plan.seed)
+        expected = int((poisoned < plan.nan_payload + plan.inf_payload).sum())
+        expect(expected > 0, "the chaos stream poisons no append")
+        expect(int(s.rejected) == expected,
+               f"rejected {int(s.rejected)} != {expected} poisoned appends")
+        expect(bool(torch.isfinite(s.chol).all()), "chaos left a non-finite Cholesky")
+        expect(conv and esc == dict(attempts=2, resolved=1, forced_stalls=1,
+                                    exhausted=0),
+               f"refit_alpha ladder under cg_stall:1: converged {conv}, {esc}")
+        expect(all(r.done for r in reqs), "chaos: unanswered queries")
+        mean = np.concatenate([r.mean for r in reqs])
+        var = np.concatenate([r.var for r in reqs])
+        expect(len(mean) == len(query) and np.isfinite(mean).all()
+               and np.isfinite(var).all() and (var >= 0).all(),
+               "chaos: a query answered non-finitely")
+        sanitized = int((faults._hash01(torch.from_numpy(query), plan.seed)
+                         < plan.nan_payload + plan.inf_payload).sum())
+        print(f"[resilience] chaos: 7 journalled ops in {ops_s * 1e3:.1f} ms, "
+              f"{expected} poisoned appends rejected (of {obs_nodes.size}), count "
+              f"{int(s.count)}, overflow {int(s.overflow)}, finite Cholesky; "
+              f"refit_alpha resolved in one extra rung ({iters} iterations, {esc}); "
+              f"{len(query)} queries answered finitely ({sanitized} poisoned rows "
+              f"sanitised to the prior)")
+
+        # Query latency: requests of 16 nodes through the server's query,
+        # the plan on and off in turns, on the chaos state.
+        lat: dict = {"chaos": [], "fault-free": []}
+        q_reqs = [torch.from_numpy(query[i:i + SERVE["req"]]).to(dev)
+                  for i in range(0, len(query), SERVE["req"])]
+        for rnd in range(2 * RESIL["latency_rounds"]):
+            mode = ("chaos", "fault-free")[rnd % 2]
+            with faults.use_faults(plan if mode == "chaos" else None):
+                for q in q_reqs:
+                    t0 = time.perf_counter()
+                    m, v = srv.query(q)
+                    sync(dev)
+                    lat[mode].append(time.perf_counter() - t0)
+        print(f"[resilience] query latency, {len(q_reqs)} requests of "
+              f"{SERVE['req']} nodes x {RESIL['latency_rounds']} rounds each, in "
+              f"turns: chaos {_quantiles_ms(lat['chaos'])}; fault-free "
+              f"{_quantiles_ms(lat['fault-free'])}")
+
+        # Journal cost alone: one 32-node observe record per op.
+        with Journal(os.path.join(tmp.name, "bench.jsonl")) as j:
+            nodes_l, ys_l = obs_nodes[0].tolist(), [0.5] * RESIL["batch"]
+            t0 = time.perf_counter()
+            for _ in range(RESIL["journal_ops"]):
+                j.log("observe", nodes=nodes_l, ys=ys_l, on_overflow="reject",
+                      auto_refit=True)
+            journal_us = (time.perf_counter() - t0) / RESIL["journal_ops"] * 1e6
+        print(f"[resilience] journal: {journal_us:.1f} us per 32-node observe "
+              f"record (flush, no fsync; {RESIL['journal_ops']} records)")
+
+        # 2. Kill and recover: the op stream in a child process on the card,
+        # killed at its kill_at-th op (after the checkpoint of op 4, before
+        # that of op 6), recovered here from checkpoint + journal tail.
+        jpath = os.path.join(tmp.name, "kill.jsonl")
+        cdir = os.path.join(tmp.name, "kill")
+        child = _RESIL_CHILD.format(src=str(SRC), root=str(ROOT), jpath=jpath,
+                                    cdir=cdir, every=RESIL["checkpoint_every"],
+                                    serve=SERVE, resil=RESIL, device=str(dev))
+        env = dict(os.environ, REPRO_FAULTS=f"kill_at:{RESIL['kill_at']}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", child], env=env,
+                              capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        expect(proc.returncode == KILL_EXIT_CODE,
+               f"killed child exited {proc.returncode}, not {KILL_EXIT_CODE}: "
+               f"{proc.stderr[-2000:]}")
+        events = read_journal(jpath)
+        expect(len(events) == RESIL["kill_at"]
+               and [e["type"] for e in events] == ["observe"] * RESIL["kill_at"],
+               f"journal after the kill: {[e['type'] for e in events]}")
+
+        def recovery():
+            t0 = time.perf_counter()
+            st, n_tail = recover(empty, jpath, cdir)
+            sync(dev)
+            t1 = time.perf_counter()
+            st_full, n_full = recover(empty, jpath, None)
+            sync(dev)
+            t2 = time.perf_counter()
+            ref = ResilientServer(empty, on_overflow="forget_oldest")
+            for nodes, y in zip(obs_nodes[:RESIL["kill_at"]],
+                                problem[2][:RESIL["kill_at"]]):
+                ref.observe(nodes, y)
+            return st, n_tail, t1 - t0, st_full, n_full, t2 - t1, ref.state
+
+        st, n_tail, rec_s, st_full, n_full, full_s, ref = part(
+            "resilience recover", ("walk_sampler", "gram_block"), recovery)
+        expect(0 < n_tail < n_full == RESIL["kill_at"],
+               f"replayed {n_tail} of {n_full} events")
+        qm = torch.from_numpy(query[:SERVE["n_moments"]]).to(dev)
+        errs = []
+        for other in (ref, st_full):
+            for a, b in zip(serving.posterior_moments(st, qm),
+                            serving.posterior_moments(other, qm)):
+                errs.append(rel_err(a, b)[1])
+        expect(max(errs) <= 1e-5, f"recovered moments off by {max(errs):.2e} of scale")
+        print(f"[resilience] kill_at:{RESIL['kill_at']}: child exit "
+              f"{proc.returncode} in {child_s:.1f} s, journal {len(events)} ops; "
+              f"recover from checkpoint + {n_tail}-event tail {rec_s * 1e3:.1f} ms; "
+              f"full replay of {n_full} events {full_s * 1e3:.1f} ms "
+              f"({full_s * 1e3 / n_full:.1f} ms per event); moments on "
+              f"{SERVE['n_moments']} nodes within {max(errs):.2e} of scale of the "
+              "uninterrupted run and of the full replay")
+
+        # 3. The escalated solve on the clustered block.
+        _, _, _, _, _, _, h, b = solver_problem(SOLVE, dev)
+        x_none = solvers.solve(h, b, solve_strategy("none")).x
+        rung_ms: list = []
+        seen: list = []
+        real = solvers.escalate._base_solve
+
+        def timed_rung(*a, **k):
+            sync(dev)
+            t0 = time.perf_counter()
+            res = real(*a, **k)
+            sync(dev)
+            rung_ms.append((time.perf_counter() - t0) * 1e3)
+            seen.append(res)
+            return res
+
+        def escalated(spec):
+            obs.REGISTRY.reset()
+            rung_ms.clear()
+            seen.clear()
+            solvers.escalate._base_solve = timed_rung
+            try:
+                with faults.use_faults(spec), obs.tap_scope(True):
+                    res = solvers.solve(h, b, solve_strategy("nystrom"),
+                                        escalate=True)
+                    esc = _escalation_counters(obs)
+            finally:
+                solvers.escalate._base_solve = real
+                obs.REGISTRY.reset()
+            return res, esc, list(rung_ms), list(seen)
+
+        res, esc, ms1, _ = part("resilience escalate",
+                                ("khat_fused", "gram_block", "woodbury_apply"),
+                                lambda: escalated("cg_stall:1"))
+        _, rel = rel_err(res.x, x_none)
+        expect(bool(res.converged.all()) and rel <= 1e-4
+               and esc == dict(attempts=2, resolved=1, forced_stalls=1, exhausted=0),
+               f"escalated solve under cg_stall:1: converged "
+               f"{bool(res.converged.all())}, rel {rel:.2e} to 'none', {esc}")
+        res9, esc9, ms9, seen9 = part("resilience exhaust",
+                                      ("khat_fused", "woodbury_apply"),
+                                      lambda: escalated("cg_stall:9"))
+        best = min(seen9, key=lambda r: float(r.resnorm.max()))
+        expect(not bool(res9.converged.any()) and esc9["exhausted"] == 1
+               and torch.equal(res9.x, best.x),
+               f"exhausted ladder under cg_stall:9: {esc9}, converged "
+               f"{bool(res9.converged.any())}")
+        print(f"[resilience] escalated nystrom solve (T = {b.shape[0]}): "
+              f"cg_stall:1 converged in {len(ms1)} attempts ({esc}), rel "
+              f"{rel:.2e} to 'none', rung ms " + ", ".join(f"{m:.1f}" for m in ms1)
+              + f"; cg_stall:9 exhausted after {len(ms9)} attempts ({esc9}), best "
+              f"iterate returned, rung ms " + ", ".join(f"{m:.1f}" for m in ms9))
+
+        # 4. Checkpoints: the capacity-128 serving state and a BO run.
+        mgr = CheckpointManager(os.path.join(tmp.name, "state"), keep=2)
+        packed = update._pack(s)
+        t0 = time.perf_counter()
+        mgr.save(1, packed, extra={"journal_seq": 6})
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        mgr.save(2, packed, blocking=False)
+        async_call_ms = (time.perf_counter() - t0) * 1e3
+        mgr.wait()
+        async_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        back, _ = mgr.restore(update._pack(empty))
+        sync(dev)
+        restore_ms = (time.perf_counter() - t0) * 1e3
+        flat_a = [x for x in _tensors(packed)]
+        flat_b = [x for x in _tensors(back)]
+        expect(len(flat_a) == len(flat_b) == 11 and all(
+            a.device == b.device and a.dtype == b.dtype and torch.equal(a, b)
+            for a, b in zip(flat_a, flat_b)), "serving state restore not bit-equal")
+        print(f"[resilience] serving state checkpoint: save {save_ms:.1f} ms "
+              f"(blocking), async save returns in {async_call_ms:.1f} ms and lands "
+              f"in {async_ms:.1f} ms, restore {restore_ms:.1f} ms; bit-equal")
+
+        bo = bo_resume(dev, os.path.join(tmp.name, "bo"), part)
+        return dict(counts=total, rejected=expected, journal_us=journal_us,
+                    save_ms=save_ms, restore_ms=restore_ms, recover_ms=rec_s * 1e3,
+                    replay_ms_per_event=full_s * 1e3 / n_full, rung_ms=ms1,
+                    lat=lat, bo=bo)
+    finally:
+        tmp.cleanup()
+
+
+def _tensors(packed):
+    """The tensors of a packed ServeState, the trace's three in order."""
+    for x in packed:
+        yield from ((x,) if hasattr(x, "dtype") else (x.cols, x.loads, x.lens))
+
+
+class _Preempted(Exception):
+    pass
+
+
+def bo_resume(dev, directory: str, part) -> dict:
+    """thompson_sampling_incremental at N = 10⁶ checkpointed every round
+    through CheckpointManager (non-blocking, as the driver twin does),
+    stopped after ``RESIL["bo_rounds"]`` rounds, then resumed from the
+    manager's latest step to the full run; the BO tree's blocking save and
+    restore bit-equal."""
+    import torch
+
+    from repro_torch.bo import thompson
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import modulation, walks
+    from repro_torch.graphs import generators, signals
+
+    n = SERVE["n_nodes"]
+    graph = generators.ring(n, k=SERVE["ring_k"], device=dev)
+    wcfg = walks.WalkConfig(SERVE["n_walkers"], SERVE["p_halt"], SERVE["l_max"])
+    mod = modulation.diffusion(l_max=SERVE["l_max"])
+    truth = signals.smooth_periodic_ring(n, seed=1)
+    kw = dict(n_init=BO["n_init"], n_steps=BO["rounds"], refit_every=BO["refit_every"],
+              refit_steps=BO["refit_steps"], noise_std=0.1, f_max=float(truth.max()),
+              n_candidates=BO["n_candidates"])
+    mgr = CheckpointManager(directory, keep=2)
+
+    def tree(st):
+        return {"x_buf": st.x_buf, "y_buf": st.y_buf, "params": st.params}
+
+    def cb(st):
+        mgr.save(st.iteration, tree(st), blocking=False,
+                 extra={"count": st.count, "iteration": st.iteration,
+                        "regret": st.regret})
+        if st.iteration == RESIL["bo_rounds"]:
+            raise _Preempted
+
+    def objective(idx):
+        return truth[np.asarray(idx)]
+
+    def first():
+        t0 = time.perf_counter()
+        try:
+            thompson.thompson_sampling_incremental(graph, wcfg, mod, objective, 17,
+                                                   checkpoint_cb=cb, **kw)
+        except _Preempted:
+            pass
+        mgr.wait()
+        return time.perf_counter() - t0
+
+    need = ("walk_sampler", "gram_block", "khat_fused", "ell_spmv_t")
+    first_s = part("resilience bo", need, first)
+    cap = BO["n_init"] + BO["rounds"]
+    example = {"x_buf": np.zeros(cap, np.int32), "y_buf": np.zeros(cap, np.float32),
+               "params": thompson.mll.init_hyperparams(mod, device=dev)}
+    t0 = time.perf_counter()
+    saved, manifest = mgr.restore(example)
+    restore_ms = (time.perf_counter() - t0) * 1e3
+    extra = manifest["extra"]
+    expect(mgr.latest_step() == RESIL["bo_rounds"] == extra["iteration"],
+           f"BO checkpoint at step {mgr.latest_step()}")
+    state = thompson.BOState(x_buf=saved["x_buf"], y_buf=saved["y_buf"],
+                             count=extra["count"], params=saved["params"],
+                             regret=list(extra["regret"]), iteration=extra["iteration"])
+
+    def resume():
+        t0 = time.perf_counter()
+        st = thompson.thompson_sampling_incremental(graph, wcfg, mod, objective, 17,
+                                                    state=state, **kw)
+        return st, time.perf_counter() - t0
+
+    st, resume_s = part("resilience bo resume", need, resume)
+    expect(st.iteration == BO["rounds"] and len(st.regret) == BO["rounds"]
+           and np.isfinite(st.regret).all()
+           and len(np.unique(st.x_obs)) == st.count == cap,
+           f"resumed BO: iteration {st.iteration}, regret {st.regret}")
+    t0 = time.perf_counter()
+    mgr.save(BO["rounds"], tree(st), extra={"count": st.count})
+    save_ms = (time.perf_counter() - t0) * 1e3
+    back, _ = mgr.restore(example)
+    same = (np.array_equal(back["x_buf"], st.x_buf)
+            and np.array_equal(back["y_buf"], st.y_buf)
+            and torch.equal(back["params"]["log_sigma_n"], st.params["log_sigma_n"])
+            and all(torch.equal(back["params"]["mod"][k], v)
+                    for k, v in st.params["mod"].items()))
+    expect(same, "BO state restore not bit-equal")
+    print(f"[resilience] BO: {RESIL['bo_rounds']} rounds at N = {n} in "
+          f"{first_s * 1e3:.1f} ms, checkpoint restored in {restore_ms:.1f} ms, "
+          f"resumed to round {st.iteration} in {resume_s * 1e3:.1f} ms; regret "
+          + ", ".join(f"{r:.4f}" for r in st.regret)
+          + f"; BO tree save {save_ms:.1f} ms, restore bit-equal")
+    return dict(regret=st.regret, first_s=first_s, resume_s=resume_s)
+
+
+# --------------------------------------------------------------------------
 # Phase 5: timing at the main-path shapes
 # --------------------------------------------------------------------------
 
@@ -2890,14 +3337,15 @@ def phase_timing(dev, results: dict) -> list[dict]:
     n, s, t = MAIN["n_nodes"], MAIN["n_samples"], MAIN["n_train"]
     seed = main["out"]["seed"]
     # Launches of each kernel summed over the paths' runs (main, fit,
-    # serving, the two BO loops, solvers and lm), each counted from 0.
+    # serving, the two BO loops, solvers, lm, baselines, svgp, jlt, obs and
+    # the parts of resilience), each counted from 0.
     path_counts = [main["counts"], results["fit"]["counts"],
                    results["serving"]["counts"],
                    *(results["bo"][e]["counts"] for e in ("incremental",
                                                           "refit-chunked")),
                    results["solvers"]["counts"], results["lm"]["counts"],
                    *(results[p]["counts"] for p in ("baselines", "svgp", "jlt",
-                                                     "obs"))]
+                                                     "obs", "resilience"))]
     counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     nodes = torch.arange(n, dtype=torch.int32, device=dev)
     wkw = dict(n_walkers=wcfg.n_walkers, p_halt=wcfg.p_halt, l_max=wcfg.l_max)
@@ -3592,6 +4040,7 @@ def main() -> int:
         ("svgp", lambda: phase_svgp(dev)),
         ("jlt", lambda: phase_jlt(dev)),
         ("obs", lambda: phase_obs(dev)),
+        ("resilience", lambda: phase_resilience(dev)),
     ]
     results = {}
     for name, fn in phases:

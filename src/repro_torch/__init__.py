@@ -4,8 +4,10 @@ The package mirrors ``src/repro/`` module for module and never imports JAX
 or the JAX package.  Ported so far: graph random-feature walk sampling, the
 sparse Φ / Φᵀ / K̂ products, Jacobi CG and the pathwise-conditioned posterior;
 the LML fit, online GP serving and Thompson-sampling BO; the Nyström/SLQ
-solver stack; and the LM scaffold's serving path (``models``, ``configs``,
-``launch.serve``).  Every kernel runs on a CUDA card as hand-written CUDA
-(``kernels/csrc/``); a tensor that lies on the CPU goes to each kernel's
-plain PyTorch version instead.
+solver stack; the LM scaffold's serving path (``models``, ``configs``,
+``launch.serve``); the paper's baselines; and the observability
+(``obs``) and resilience (``resilience``, ``checkpoint``) layers.  Every
+kernel runs on a CUDA card as hand-written CUDA (``kernels/csrc/``); a
+tensor that lies on the CPU goes to each kernel's plain PyTorch version
+instead.
 """

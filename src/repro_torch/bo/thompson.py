@@ -28,10 +28,13 @@ so the measured rank keeps its meaning.
 Observability (when ``obs`` is enabled): each round's draw is a
 ``bo.draw`` span, and each round bumps ``bo.rounds`` and
 ``bo.observations`` and sets the ``bo.incumbent_best`` (and, with
-``f_max``, ``bo.incumbent_regret``) gauges.  Not in the port yet:
-``checkpoint_cb`` resume through the checkpoint manager (a
-``checkpoint_cb`` callable is still called after every round, and
-``state=`` resumes from a :class:`BOState`).
+``f_max``, ``bo.incumbent_regret``) gauges.
+
+Resume: ``checkpoint_cb`` is called with the :class:`BOState` after every
+round, and ``state=`` resumes from one.  The driver twin
+(examples/bo_social_network.py) saves the buffers and hyperparameters
+through ``repro_torch.checkpoint.CheckpointManager`` from that callback and
+rebuilds the state from the manager's latest step.
 """
 from __future__ import annotations
 

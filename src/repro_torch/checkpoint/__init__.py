@@ -1,0 +1,2 @@
+"""Atomic, step-tagged checkpoints (port of ``repro/checkpoint``)."""
+from .manager import CheckpointManager  # noqa: F401

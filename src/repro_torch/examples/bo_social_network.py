@@ -5,17 +5,24 @@ on the PyTorch port.
     PYTHONPATH=src python -m repro_torch.examples.bo_social_network --nodes 20000
     PYTHONPATH=src python -m repro_torch.examples.bo_social_network --nodes 1000000
 
-The twin of examples/bo_social_network.py, with the same flags and defaults
-except those listed under "left out" in --help.  It runs on the CUDA card
+The twin of examples/bo_social_network.py, with the same flags and
+defaults, and ``--device``.  It runs on the CUDA card
 (``--device cpu`` runs the plain PyTorch versions instead).  The default
 engine is the *incremental* serving loop: one ServeState reused across the
 run, O(m²) Cholesky appends per observation, joint Thompson draws over a
 candidate set.  ``--engine refit`` runs the paper's from-scratch loop
-(materialised trace + pathwise sample per round).  ``--record PATH``
-streams a JSONL flight record of the run and prints the obs summary.
+(materialised trace + pathwise sample per round).
+
+The BO state checkpoints every iteration to ``--ckpt`` (default
+``grf_bo_ckpt`` in the temporary directory, ``/tmp/grf_bo_ckpt`` on most
+systems) — kill and rerun with the same arguments to resume.
+``--record PATH`` streams a JSONL flight record of the run and prints the
+obs summary.
 """
 import argparse
 import contextlib
+import os
+import tempfile
 import time
 
 import numpy as np
@@ -24,16 +31,14 @@ import torch
 from repro_torch import device as _device
 from repro_torch import obs
 from repro_torch.bo import baselines, thompson
+from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import modulation, walks
+from repro_torch.gp import mll
 from repro_torch.graphs import generators
-
-LEFT_OUT = ("left out of the port so far: --ckpt (checkpoint resume; the "
-            "loop's state= resume argument is ported)")
 
 
 def main(argv=None):
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0],
-                                 epilog=LEFT_OUT)
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--nodes", type=int, default=20_000)
     ap.add_argument("--steps", type=int, default=60)
     ap.add_argument("--init", type=int, default=200)
@@ -42,6 +47,8 @@ def main(argv=None):
                     default="incremental")
     ap.add_argument("--candidates", type=int, default=2048,
                     help="Thompson candidate set per round (incremental)")
+    ap.add_argument("--ckpt",
+                    default=os.path.join(tempfile.gettempdir(), "grf_bo_ckpt"))
     ap.add_argument("--record", metavar="PATH", default=None,
                     help="stream a JSONL flight record of the run")
     ap.add_argument("--device", default=None,
@@ -91,18 +98,48 @@ def run(args):
               "sampled lazily per observation/query")
 
     mod = modulation.diffusion(l_max=5)
+    mgr = CheckpointManager(args.ckpt, keep=2)
+
+    state = None
+    if mgr.latest_step() is not None:
+        print("resuming BO from checkpoint ...")
+        # The buffers and hyperparameters are the tree; the example gives
+        # their shapes, dtypes and device.
+        capacity = args.init + args.steps
+        tree, manifest = mgr.restore(
+            {"x_buf": np.zeros(capacity, np.int32),
+             "y_buf": np.zeros(capacity, np.float32),
+             "params": mll.init_hyperparams(mod, device=dev)})
+        extra = manifest["extra"]
+        state = thompson.BOState(
+            x_buf=tree["x_buf"], y_buf=tree["y_buf"],
+            count=int(extra["count"]), params=tree["params"],
+            regret=list(extra["regret"]),
+            iteration=int(extra["iteration"]),
+        )
+
+    def ckpt_cb(st):
+        mgr.save(st.iteration,
+                 {"x_buf": st.x_buf, "y_buf": st.y_buf, "params": st.params},
+                 blocking=False,
+                 extra={"count": st.count, "iteration": st.iteration,
+                        "regret": st.regret})
+
     t0 = time.time()
     if args.engine == "incremental":
         st = thompson.thompson_sampling_incremental(
             g, cfg, mod, obj, 1, n_init=args.init, n_steps=args.steps,
             refit_every=10, refit_steps=10, f_max=fmax,
-            n_candidates=args.candidates,
+            n_candidates=args.candidates, state=state,
+            checkpoint_cb=ckpt_cb,
         )
     else:
         st = thompson.thompson_sampling(
             tr, mod, obj, 1, n_init=args.init, n_steps=args.steps,
             refit_every=10, refit_steps=10, f_max=fmax,
+            state=state, checkpoint_cb=ckpt_cb,
         )
+    mgr.wait()
     _sync(dev)
     print(f"BO finished in {time.time()-t0:.1f}s; final simple regret "
           f"{st.regret[-1]:.4f}")

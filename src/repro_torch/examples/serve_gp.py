@@ -14,6 +14,12 @@ nothing N-scale in the hot path.  ``--fit-steps K`` runs K LML-ascent
 steps on the observations first.  ``--record PATH`` streams a JSONL flight
 record (spans, counters, CG taps) and prints the obs summary at exit;
 ``python -m repro_torch.obs.report --validate PATH`` checks it.
+
+Chaos mode: with a fault plan in ``REPRO_FAULTS`` (resilience/faults.py,
+e.g. ``REPRO_FAULTS=nan_payload:0.01,cg_stall:1``) the guards must absorb
+every injected fault — this script's assertions are the gate: a finite
+Cholesky, the escalated refit_alpha converged, every query answered
+finitely.
 """
 import argparse
 import contextlib
@@ -27,9 +33,10 @@ from repro_torch import obs
 from repro_torch import serving
 from repro_torch.core import modulation, walks
 from repro_torch.graphs import generators
+from repro_torch.resilience import faults
 
 LEFT_OUT = ("left out of the port so far: --mesh (sharded serving and the "
-            "fleet) and the REPRO_FAULTS chaos mode")
+            "fleet)")
 
 
 def main(argv=None):
@@ -65,6 +72,9 @@ def _sync(dev):
 
 def run(args):
     dev = _device.resolve(args.device)
+    plan = faults.active()
+    if plan is not None:
+        print(f"chaos mode: injected fault plan [{plan.spec()}]")
     print(f"building Barabási–Albert graph with {args.nodes} nodes on {dev} ...")
     t0 = time.time()
     g = generators.barabasi_albert(args.nodes, m=3, seed=0, device=dev)
@@ -123,6 +133,9 @@ def run(args):
           f"steady-state observe() {1e3*(time.time()-t0):.1f} ms")
     assert bool(torch.isfinite(state.chol).all()), \
         "guarded appends left a non-finite Cholesky"
+    if int(state.rejected) > 0:
+        print(f"  {int(state.rejected)} poisoned append(s) rejected by the "
+              f"guards")
 
     state, alpha_iters, alpha_conv = serving.refit_alpha(
         state, escalate=True, return_diagnostics=True

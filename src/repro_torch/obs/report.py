@@ -23,13 +23,16 @@ import sys
 from . import registry
 
 # Required fields per event type — the JSONL schema the validator (and the
-# round-trip test) enforce; the JAX package's, so records of either package
-# validate under both.  Every event additionally carries (t, seq).
+# round-trip test) enforce.  It is the JAX package's plus the
+# ``solver.escalation`` event that both packages' escalation ladders emit
+# (and the JAX validator does not list), so a record of either package
+# validates here.  Every event additionally carries (t, seq).
 EVENT_SCHEMA = {
     "meta": ("jax_version", "host_backend", "spmv_backend"),
     "span": ("name", "path", "depth", "dur_s", "blocked"),
     "tap": ("name", "values"),
     "fit_step": ("step", "loss", "cg_iters", "cg_converged"),
+    "solver.escalation": ("site", "attempt", "converged", "forced_stall"),
     "summary": ("metrics",),
 }
 

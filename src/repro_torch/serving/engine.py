@@ -18,8 +18,10 @@ Observability (when ``obs`` is enabled): admission and backpressure
 counters, the ``serving.queue_depth`` gauge, a ``serving.wave`` span per
 wave (its copy to the host inside the window), ``serving.queries_served``
 and the ``serving.wave.fill`` histogram, a ``serving.thompson_draw`` span,
-and the ``serving.thompson.cov_fallback`` tap.  Not in this slice: the
-fault-plan scope.
+and the ``serving.thompson.cov_fallback`` tap.  Fault injection needs no
+site here: every wave and draw reaches ``state._query_features``, whose
+hooks read the active fault plan at the call (the JAX package passes it
+into its traces as a static argument instead).
 """
 from __future__ import annotations
 

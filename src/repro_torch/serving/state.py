@@ -21,8 +21,11 @@ N-scale; N enters only through the lazy walk sampling of the q query rows.
 as in the JAX package, so appends run without reading anything back to the
 host; ``seed`` is the uint32 walk seed (a Python int), the identity of Φ.
 The ``serving.var_clamped`` obs tap counts clamped variances when obs is
-enabled.  Not in this slice: the fault-injection sites the JAX serving code
-threads through.
+enabled.  Fault injection (``resilience.faults``): :func:`query_rows`
+poisons the lazily sampled payload rows under a payload plan, and the query
+path sanitises them (``guard_trace`` in :func:`_query_features`, which
+every query reaches: ``posterior_moments``, the engine's waves and
+``thompson_draw``); with no plan both hooks hand back their input.
 """
 from __future__ import annotations
 
@@ -35,6 +38,7 @@ from ..core import features
 from ..core.walks import WalkConfig, WalkTrace
 from ..graphs.formats import Graph
 from ..kernels import dispatch
+from ..resilience import faults
 
 
 @dataclasses.dataclass(frozen=True)
@@ -144,13 +148,17 @@ def query_rows(state: ServeState, query_nodes: torch.Tensor) -> WalkTrace:
     The counter RNG keyed on absolute node ids makes these rows *exactly*
     the rows of the Φ the train block was built from."""
     g = state.graph
+    nodes = torch.as_tensor(query_nodes).to(device=g.device, dtype=torch.int32)
     cols, loads, lens = dispatch.walk_sample(
-        g.neighbors, g.weights, g.deg,
-        torch.as_tensor(query_nodes).to(device=g.device, dtype=torch.int32),
+        g.neighbors, g.weights, g.deg, nodes,
         state.seed, n_walkers=state.cfg.n_walkers, p_halt=state.cfg.p_halt,
         l_max=state.cfg.l_max, reweight=state.cfg.reweight,
         scheme=state.cfg.scheme,
     )
+    # Fault-injection site (no plan: loads unchanged): every consumer of
+    # lazy rows, append and query alike, sees the corruption; the append
+    # path rejects it, the query path sanitises it.
+    loads = faults.corrupt_loads(loads, nodes)
     return WalkTrace(cols=cols, loads=loads, lens=lens)
 
 
@@ -181,8 +189,12 @@ def posterior_moments(state: ServeState, query_nodes):
 
 
 def _query_features(state: ServeState, query_nodes):
-    """Lazy Φ rows + feature values for ``query_nodes``."""
-    trace_q = query_rows(state, query_nodes)
+    """Lazy guarded Φ rows + feature values for ``query_nodes``.
+
+    ``guard_trace`` zeroes non-finite payload rows (only under an active
+    payload plan): a poisoned query degrades to the prior for that node
+    instead of NaN-ing the whole wave."""
+    trace_q = faults.guard_trace(query_rows(state, query_nodes))
     return trace_q, features.feature_values(trace_q, state.f)
 
 

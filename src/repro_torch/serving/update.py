@@ -28,9 +28,17 @@ Observability (when ``obs`` is enabled): the ``serving.observe_batch``,
 ``serving.refit_alpha`` spans, and the ``serving.observations``,
 ``serving.observe.*`` and ``serving.refit.fallback`` counters of the JAX
 package; the flag reads behind the overflow and rejection counters are
-made only then.  Not in this slice: the ``*_async`` (buffer-donating)
-variants, the ``donate`` option of :func:`refit_alpha`, the escalation
-counters of its ladder and the fault-injection sites.
+made only then.  :func:`refit_alpha`'s ladder emits one
+``solver.escalation`` event per attempt (``site: "serving.refit_alpha"``)
+and the ``solver.escalation.*`` counters.
+
+Fault injection (``resilience.faults``): the append's Schur complement is
+a ``corrupt_schur`` site, the lazily sampled rows are poisoned by
+``query_rows``, and :func:`ingest` — the from-scratch parity reference,
+with no incremental guard to catch a corrupted bulk load — runs with the
+plan pinned off.  Not in this slice: the ``*_async`` (buffer-donating)
+variants and the ``donate`` option of :func:`refit_alpha`, which belong to
+the async serving of the fleet.
 """
 from __future__ import annotations
 
@@ -43,6 +51,7 @@ from .. import obs, solvers
 from ..core import features
 from ..core.walks import WalkTrace
 from ..kernels import dispatch
+from ..resilience import faults
 from ..solvers import SolveStrategy
 from .state import ServeState, query_rows, solve_chol, solve_lower
 
@@ -54,8 +63,18 @@ OVERFLOW_POLICIES = ("raise", "forget_oldest", "reject")
 # on the live block, and the O(m³) refit fallback owns it.
 _TINY_SCHUR_FRAC = 1e-5
 
+# The leaves an update changes; the rest (graph, f, σ², seed, cfg) stay.
+# A checkpoint of the state holds these, in this order.
 _MUTABLE = ("nodes", "y", "count", "trace", "chol", "alpha",
             "overflow", "rejected", "needs_refit")
+
+
+def _pack(state: ServeState) -> tuple:
+    return tuple(getattr(state, k) for k in _MUTABLE)
+
+
+def _unpack(state: ServeState, packed) -> ServeState:
+    return dataclasses.replace(state, **dict(zip(_MUTABLE, packed)))
 
 
 def _as_tensor(x, dtype, dev) -> torch.Tensor:
@@ -125,6 +144,7 @@ def _append(state: ServeState, node: torch.Tensor, y_t: torch.Tensor) -> ServeSt
     k_nn = features.khat_diag_exact(trace1, state.f)[0]
     ell = solve_lower(state.chol, k_vec)
     d2 = k_nn + state.sigma_n2 - torch.dot(ell, ell)
+    d2 = faults.corrupt_schur(d2, node)       # injection site (off: no-op)
     finite = (torch.isfinite(k_nn) & torch.all(torch.isfinite(k_vec))
               & torch.isfinite(y_t) & torch.isfinite(d2))
     over = m >= state.capacity
@@ -331,7 +351,7 @@ def ingest(state: ServeState, nodes, ys) -> ServeState:
     pad = state.capacity - count
     nodes = torch.cat([nodes, nodes.new_zeros(pad)])
     ys = torch.cat([ys, ys.new_zeros(pad)])
-    with obs.span("serving.ingest", n=count) as sp:
+    with obs.span("serving.ingest", n=count) as sp, faults.use_faults(None):
         trace = query_rows(state, nodes)
         live = torch.arange(state.capacity, device=dev) < count
         state = dataclasses.replace(
@@ -427,7 +447,11 @@ def refit_alpha(
     stale α.  Only ``alpha`` is refreshed: the cached Cholesky still
     factorises the *old* A, so variance queries need a full :func:`refit`.
     With ``escalate=True`` a non-converged solve retries up to
-    ``max_attempts`` times along :func:`_alpha_ladder`."""
+    ``max_attempts`` times along :func:`_alpha_ladder` (stronger
+    preconditioner, then 4× iteration budgets, warm-started), emitting a
+    ``solver.escalation`` obs event per attempt — the serving-side twin of
+    ``solvers.solve(..., escalate=True)``; a ``cg_stall`` fault plan forces
+    the first attempts to count as stalled."""
     if strategy is None:
         strategy = solvers.SERVING_DEFAULT
     if strategy.preconditioner == "auto":
@@ -442,10 +466,27 @@ def refit_alpha(
     rungs = _alpha_ladder(strategy)[:max_attempts] if escalate else [strategy]
     alpha = state.alpha
     with obs.span("serving.refit_alpha") as sp:
-        for s in rungs:
+        for attempt, s in enumerate(rungs):
             alpha, iters, converged = _refit_alpha_impl(state, alpha, s)
-            if converged:
+            if not escalate:
                 break
+            stalled = faults.should_stall(attempt)
+            ok = converged and not stalled
+            obs.emit_event({
+                "type": "solver.escalation", "site": "serving.refit_alpha",
+                "attempt": attempt, "converged": ok,
+                "forced_stall": stalled, "max_iters": s.max_iters,
+                "preconditioner": s.preconditioner,
+            })
+            obs.inc("solver.escalation.attempts")
+            if stalled:
+                obs.inc("solver.escalation.forced_stalls")
+            if ok:
+                if attempt > 0:
+                    obs.inc("solver.escalation.resolved")
+                break
+        else:
+            obs.inc("solver.escalation.exhausted")
         sp.block_on(alpha)
     state = dataclasses.replace(state, alpha=alpha)
     if return_diagnostics:

@@ -1,6 +1,6 @@
 """The Krylov strategy layer (port of ``repro/solvers``): CG, Jacobi and
-pivoted-Cholesky Nyström preconditioning, the ``"auto"`` rank probe, and SLQ
-log-determinants."""
+pivoted-Cholesky Nyström preconditioning, the ``"auto"`` rank probe, SLQ
+log-determinants and the solve-escalation ladder."""
 from .cg import (  # noqa: F401
     CGResult,
     LanczosCoeffs,
@@ -9,6 +9,10 @@ from .cg import (  # noqa: F401
     jacobi_precond,
     make_preconditioner,
     solve,
+)
+from .escalate import (  # noqa: F401
+    escalation_ladder,
+    solve_escalate,
 )
 from .nystrom import (  # noqa: F401
     nystrom_precond,

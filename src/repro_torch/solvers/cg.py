@@ -12,9 +12,8 @@ quadrature (solvers/slq.py) and the spectral rank probe
 (solvers/nystrom.py) integrate.  :func:`solve` is the strategy entry point:
 ``"none"``, ``"jacobi"``, ``"nystrom"`` (the pivoted-Cholesky Nyström
 preconditioner, applied by the Woodbury kernel) and ``"auto"`` (resolved to
-a measured rank by the spectral probe).  Not in the port yet:
-``escalate=True``, which raises NotImplementedError until the resilience
-half of ROADMAP Queue 1 #5 ports ``solvers/escalate.py``.
+a measured rank by the spectral probe).  ``escalate=True`` routes to the
+escalation ladder of ``solvers/escalate.py``.
 
 Observability (when ``obs`` is enabled): every :func:`solve` records the
 ``solver.cg`` tap (iterations, worst residual, convergence, with the
@@ -264,6 +263,7 @@ def solve(
     dot: Callable[[torch.Tensor, torch.Tensor], torch.Tensor] | None = None,
     precond: Callable[[torch.Tensor], torch.Tensor] | None = None,
     escalate: bool = False,
+    max_attempts: int = 4,
 ) -> CGResult:
     """Solve H v = b under a :class:`SolveStrategy` — the one entry point.
 
@@ -275,16 +275,17 @@ def solve(
     (solvers/nystrom.py); the port has no trace, so it always measures.  The
     preconditioner is built from the f32 operator; ``matvec_dtype`` wraps
     only the CG matvec, and the rank actually used is reported as
-    ``CGResult.precond_rank``.  ``escalate=True`` raises NotImplementedError
-    until the resilience half of ROADMAP Queue 1 #5 ports
-    solvers/escalate.py."""
+    ``CGResult.precond_rank``.
+
+    ``escalate=True`` turns a non-converged result into host-level retries
+    along :func:`repro_torch.solvers.escalation_ladder` (capped at
+    ``max_attempts``, jittered backoff, ``solver.escalation`` obs events) —
+    see solvers/escalate.py."""
     if escalate:
-        raise NotImplementedError(
-            "escalate=True comes with the port's resilience slice, the "
-            "second half of ROADMAP Queue 1 #5 (solvers/escalate.py, with "
-            "the fault hooks, the journal and the checkpoint manager); the "
-            "observability half is ported"
-        )
+        from .escalate import solve_escalate
+
+        return solve_escalate(h, b, strategy, x0=x0, dot=dot,
+                              precond=precond, max_attempts=max_attempts)
     if strategy.preconditioner == "auto":
         from .nystrom import resolve_strategy
 

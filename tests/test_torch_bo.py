@@ -209,10 +209,12 @@ def test_baselines_match_jax_exactly(name):
     ("bo_social_network", ["--nodes", "600", "--steps", "2", "--init", "20",
                            "--walkers", "4", "--engine", "refit"]),
 ])
-def test_drivers_run_and_default_to_the_card(driver, argv, capsys):
+def test_drivers_run_and_default_to_the_card(driver, argv, capsys, tmp_path):
     import importlib
 
     mod = importlib.import_module(f"repro_torch.examples.{driver}")
+    if driver == "bo_social_network":   # a checkpoint directory of its own
+        argv = argv + ["--ckpt", str(tmp_path / "ckpt")]
     out = mod.main(argv + ["--device", "cpu"])
     assert out is None
     text = capsys.readouterr().out

@@ -651,6 +651,8 @@ def test_drivers_record_a_valid_flight_record(tmp_path, capsys, driver, argv):
 
     path = str(tmp_path / f"{driver}.jsonl")
     mod = importlib.import_module(f"repro_torch.examples.{driver}")
+    if driver == "bo_social_network":   # a checkpoint directory of its own
+        argv = argv + ["--ckpt", str(tmp_path / "ckpt")]
     mod.main(argv + ["--record", path, "--device", "cpu"])
     assert not obs.enabled()
     assert report.validate(path) == []

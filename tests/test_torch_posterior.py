@@ -274,8 +274,9 @@ def test_cg_loops_match_jax_directly(p):
 @pytest.mark.parametrize("bad", [
     dict(preconditioner="nystrom"), dict(preconditioner="auto")])
 def test_later_slice_features_raise(p, bad):
-    """"nystrom" and "auto" are ported (they solve to the Jacobi solution);
-    escalate=True still raises until the resilience slice."""
+    """"nystrom" and "auto" are ported (they solve to the Jacobi solution),
+    and so is escalate=True (the escalation ladder solves to it too); an
+    unknown preconditioner still raises."""
     tx = tfeat.take_rows(p.ttr, p.ttrain)
     h = tmll.make_h_operator(tx, p.tf, 0.05, p.n)
     b = torch.ones(30)
@@ -283,8 +284,9 @@ def test_later_slice_features_raise(p, bad):
     want = solvers.solve(h, b, solvers.SolveStrategy(tol=1e-6))
     assert bool(got.converged.all())
     close(got.x, want.x, CG_TOL)
-    with pytest.raises(NotImplementedError, match="slice"):
-        solvers.solve(h, torch.ones(30), escalate=True)
+    esc = solvers.solve(h, b, solvers.SolveStrategy(tol=1e-6), escalate=True)
+    assert bool(esc.converged.all())
+    close(esc.x, want.x, CG_TOL)
     with pytest.raises(ValueError):
         solvers.SolveStrategy(preconditioner="ilu")
 
