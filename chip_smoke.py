@@ -44,7 +44,11 @@ non-zero exit and no result line):
                dimension's 65535), f32 and bf16, and strided
                and misaligned bf16 views, each gated on the instance the
                routing rule names (bf16 with D ≤ 256, D % 8 = 0, aligned:
-               the tensor cores).
+               the tensor cores); and the gradients of a next-token
+               cross-entropy of model.forward (danube at 2 layers, d_model
+               256, f32) on the card against the CPU, every parameter
+               within 1e-3 of its gradient's scale (the two kernels'
+               autograd Functions: kernel forward, plain backward).
   3. main      ring(10⁶, k=3), 8 walkers, p_halt 0.2, l_max 5 (K = 48),
                T = 1024 observations, 16 samples: posterior_mean,
                pathwise_samples on the monolithic trace and
@@ -153,7 +157,29 @@ non-zero exit and no result line):
                checkpoint (finite regret).  Prints journal µs per op, save
                and restore ms, recovery ms and ms per replayed event, query
                p50/p99 with the plan and without, and each rung's ms.
- 16. timing    each kernel at the main-path shapes with CUDA events: kernel,
+ 16. fleet     bench_serving_load.py's full mode at the serving width
+               (ring(10⁶), K = 144, capacity 128): its seeded stream (64
+               warm observations, 96 ticks of 8 appends, forgets down to 96
+               live, Poisson(4) requests of 16 nodes; batch 64, max_pending
+               512) through GPServeLoop and GPFleetLoop in turns from
+               identically rebuilt states: requests/s, p50/p99 latency and
+               each loop's busy share over ticks 4-5; gate: every
+               request answered, the fleet's means and variances within
+               1e-5 of scale of the sync loop's.  Under a one-rank NCCL
+               process group: ShardedServeState over the replay's state
+               (moments on 256 nodes, a 3-sample Thompson draw on 8, after
+               observe_batch / forget / forget_batch and a chol_fail:1
+               append with its refit, and a fleet over it against the sync
+               engine), bit for bit; sharded_cg_solve and
+               sharded_cg_solve_chunked (chunk 65536) on the main-path trace
+               within 1e-4 of scale of the single-device solve, and
+               sharded_posterior_sample over its 1024 rows, finite, with
+               ell_spmv, ell_spmv_t and walk_sampler launched and khat_fused
+               not; then the fleet in a child process under kill_at:5
+               exits 113 at 'serving.fleet.observe' with the killed observe
+               journalled, and recover() equals the journalled fold bit for
+               bit on 256 nodes.
+ 17. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
                (ell_spmv at the prior draw [10⁶, 48] and one chunk each of
                [65536, 48] and [65536, 144], u [10⁶, 16], and the K = 144
@@ -187,7 +213,7 @@ The new shapes of phase 10 and khat_fused's at phase 11's CG shape join
 their kernels' `shapes` lists in that line.
 
 Each path (main, fit, serving, each BO loop, solvers, lm, baselines, svgp,
-jlt, obs, each part of resilience) is driven with every launch
+jlt, obs, each part of resilience and of fleet) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
 runs was never launched; a kernel's `launches` in the result line is the
 sum over those runs.  walk_sampler's launches are also printed by (M, K),
@@ -296,6 +322,26 @@ RESIL = dict(plan="nan_payload:0.01,inf_payload:0.005,chol_fail:0.05,cg_stall:1,
              seed=21, batches=5, batch=32, n_query=512, forget_slot=3,
              checkpoint_every=2, kill_at=5, latency_rounds=3, journal_ops=1000,
              bo_rounds=3)
+# The fleet phase at bench_serving_load.py's full mode (its `_worker` and
+# `_make_schedule`): ring(10⁶, k=3), 16 walkers, p_halt 0.1, l_max 8
+# (K = 144), capacity 128, σ² 0.05, 64 warm observations drawn from
+# default_rng(N), then 96 ticks drawn from default_rng(0), each of 8 appends,
+# forgets down to 96 live, Poisson(4) requests of 16 nodes; batch 64,
+# max_pending 512.  Both loops warm up on the first 8 ticks, then replay
+# all 96 in turns (`order`); the busy shares come from one profiled replay
+# of ticks 4-5 (the first with forgets, from a state the earlier ticks'
+# mutations advanced) beside its unprofiled wall.  The sharded part serves
+# 256 moment nodes, an 8-node 3-sample Thompson draw and 8 requests of 16;
+# the distributed GP solves on the main-path trace (K = 48) at σ² 0.1 with
+# SHARDED_DEFAULT (tol 1e-5), the chunked solve at chunk 65536, the
+# posterior sample over the main path's 1024 training rows; kill_at 5 falls
+# on the fleet's 4th observe.
+FLEET = dict(n_nodes=1_000_000, ring_k=3, n_walkers=16, p_halt=0.1, l_max=8,
+             capacity=128, sigma_n2=0.05, warm=64, ticks=96, observes_per_tick=8,
+             live_hi=96, lam_queries=4.0, req=16, batch=64, max_pending=512,
+             seed=0, warm_ticks=8, busy_ticks=(4, 6), order=("sync", "fleet"),
+             n_moments=256, n_cand=8, n_samples=3, n_requests=8, kill_at=5)
+DIST = dict(sigma_n2=0.1, chunk=65536, rtol=1e-4)
 # woodbury_apply's timed shapes at T = 4000: ranks and RHS widths.
 WOOD_RANKS = (64, 128, 256)
 WOOD_COLS = (1, 9, 16)
@@ -321,6 +367,12 @@ LM = dict(arch="h2o-danube-1.8b", seed=0, batch=4, max_len=5120, new_tokens=32,
 # The LM checks at full width cut to 2 layers, f32 activations and cache,
 # window 512: prefill(640) + 16 teacher-forced decode steps.
 LM_CHECK = dict(layers=2, window=512, prompt=640, steps=16, rtol=1e-3)
+# The gradient check of the two LM kernels' autograd Functions: danube cut
+# to 2 layers at d_model 256 (4 heads of 64, 2 KV heads), f32, 2 x 64 tokens;
+# each gradient within 1e-3 of its own scale of the CPU's (the forward's
+# kernel sums in another order, then the same plain backward).
+LM_GRADS = dict(layers=2, d_model=256, heads=4, kv_heads=2, head_dim=64,
+                d_ff=512, vocab=1000, batch=2, seq=64, seed=3, rtol=1e-3)
 # flash_attention's parity cases ((b, h, hkv, sq, skv, d), kwargs): the JAX
 # kernel tests' nine, B·H = 65568 (past a grid dimension's 65535), then
 # danube's prefill at both prompt lengths, gemma2-27b's local layer (softcap
@@ -2060,9 +2112,69 @@ def check_rmsnorm_cases(dev) -> None:
           f"(limit {BF16_ULPS})")
 
 
+def check_lm_grads(dev) -> None:
+    """Autograd through ``model.forward`` on the card (rmsnorm and
+    flash_attention as autograd Functions: the kernels forward, the plain
+    versions backward) against the CPU: the mean next-token cross-entropy's
+    gradient with respect to every parameter of danube at LM_GRADS' narrow
+    width, f32.  Every parameter with a gradient on the CPU has one on the
+    card, within LM_GRADS["rtol"] of that gradient's scale."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    from repro_torch.models import model
+
+    c = LM_GRADS
+    base = configs.get_config(LM["arch"])
+    cfg = dataclasses.replace(
+        base, dtype="float32", cache_dtype="float32", d_model=c["d_model"],
+        n_heads=c["heads"], n_kv_heads=c["kv_heads"], head_dim=c["head_dim"],
+        d_ff=c["d_ff"], vocab_size=c["vocab"],
+        stages=((c["layers"], base.stages[0][1]),))
+    params = model.init_params(cfg, seed=c["seed"], device=dev)
+    tok = torch.from_numpy(np.random.default_rng(c["seed"]).integers(
+        0, cfg.vocab_size, (c["batch"], c["seq"])))
+
+    def grads(p, device):
+        leaves = model.tree_leaves(p)
+        for x in leaves:
+            x.requires_grad_(True)
+        t = tok.to(device)
+        logits, _ = model.forward(p, cfg, t)
+        loss = torch.nn.functional.cross_entropy(
+            logits[:, :-1].reshape(-1, logits.shape[-1]), t[:, 1:].reshape(-1))
+        return loss, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+    before = (fops.LAUNCHES["flash_attention"], rops.LAUNCHES["rmsnorm"])
+    card_loss, card = grads(params, dev)
+    launched = (fops.LAUNCHES["flash_attention"] - before[0],
+                rops.LAUNCHES["rmsnorm"] - before[1])
+    expect(launched == (c["layers"], 2 * c["layers"] + 1),
+           f"lm grads: kernel launches (flash, rmsnorm) {launched}")
+    host_loss, host = grads(model.tree_map(lambda a: a.detach().cpu(), params),
+                            torch.device("cpu"))
+    worst = rel_err(card_loss.detach().cpu(), host_loss.detach())[1]
+    for i, (a, b) in enumerate(zip(card, host)):
+        expect((a is None) == (b is None),
+               f"lm grads: parameter {i} has a gradient on one device only")
+        if b is not None:
+            worst = max(worst, rel_err(a.cpu(), b)[1])
+    expect(worst <= c["rtol"], f"lm grads card vs CPU: rel {worst:.2e}")
+    print(f"[parity] lm gradients: danube at d_model {c['d_model']}, "
+          f"{c['layers']} layers, f32, [{c['batch']}, {c['seq']}] tokens: every one "
+          f"of {sum(g is not None for g in host)} parameters with a CPU gradient "
+          f"has one on the card (kernels forward, plain backward), worst rel "
+          f"{worst:.2e} of each gradient's scale (limit {c['rtol']:g})")
+
+
 def check_lm_kernels(dev) -> None:
     check_rmsnorm_cases(dev)
     check_flash_cases(dev)
+    check_lm_grads(dev)
 
 
 def serve_shim(real, dev, calls: list):
@@ -3108,6 +3220,492 @@ def phase_resilience(dev) -> dict:
         tmp.cleanup()
 
 
+# --------------------------------------------------------------------------
+# The fleet phase: async serving, the sharded state and the distributed GP
+# --------------------------------------------------------------------------
+
+
+def fleet_schedule(n: int, ticks: int, seed: int) -> list:
+    """bench_serving_load.py's replayed op stream: per tick, appends, enough
+    forgets to hold the live count at the watermark, and Poisson query
+    requests, grouped by kind within the tick."""
+    c = FLEET
+    rng = np.random.default_rng(seed)
+    sched, live = [], c["warm"]
+    for _ in range(ticks):
+        ops = []
+        for _ in range(c["observes_per_tick"]):
+            if live < c["capacity"]:
+                ops.append(("observe", int(rng.integers(n)),
+                            float(rng.standard_normal())))
+                live += 1
+        while live > c["live_hi"]:
+            ops.append(("forget", 0))
+            live -= 1
+        for _ in range(rng.poisson(c["lam_queries"])):
+            ops.append(("query", rng.choice(n, c["req"], replace=False)
+                        .astype(np.int32)))
+        sched.append(ops)
+    return sched
+
+
+def fleet_problem(dev):
+    """The empty capacity-128 state of the fleet phase and its 64 warm
+    observations, from seeds."""
+    import torch
+
+    from repro_torch import serving
+    from repro_torch.core import modulation, walks
+    from repro_torch.graphs import generators
+
+    c = FLEET
+    n = c["n_nodes"]
+    graph = generators.ring(n, k=c["ring_k"], device=dev)
+    wcfg = walks.WalkConfig(c["n_walkers"], c["p_halt"], c["l_max"])
+    mod = modulation.diffusion(l_max=c["l_max"])
+    seed = walks.walk_seed(torch.Generator().manual_seed(0))
+    rng = np.random.default_rng(n)
+    warm_nodes = rng.choice(n, c["warm"], replace=False).astype(np.int32)
+    warm_y = rng.standard_normal(c["warm"]).astype(np.float32)
+    empty = serving.init_state(graph, seed, mod(mod.init(device=dev)),
+                               c["sigma_n2"], c["capacity"], wcfg)
+    return empty, warm_nodes, warm_y
+
+
+def _scan_done(outstanding, lat, now):
+    still = []
+    for req, t_sub in outstanding:
+        if req.done:
+            lat.append(now - t_sub)
+        else:
+            still.append((req, t_sub))
+    return still
+
+
+def drive_sync(state, schedule, dev):
+    """The synchronous baseline (bench_serving_load's `_drive_sync`): each
+    mutation applied eagerly in arrival order, then the tick's queries in
+    blocking waves.  A request's latency runs from its tick's start."""
+    import torch
+
+    from repro_torch import serving
+
+    loop = serving.GPServeLoop(state, batch=FLEET["batch"],
+                               generator=torch.Generator(device=dev).manual_seed(5))
+    outstanding, lat, reqs = [], [], []
+    t0 = time.perf_counter()
+    for ops in schedule:
+        t_tick = time.perf_counter()
+        for kind, *payload in ops:
+            if kind == "observe":
+                loop.state = serving.observe(loop.state, payload[0], payload[1],
+                                             on_overflow="reject")
+            elif kind == "forget":
+                loop.state = serving.forget(loop.state, payload[0])
+                sync(dev)
+            else:
+                req = serving.GPRequest(nodes=payload[0])
+                reqs.append(req)
+                outstanding.append((req, t_tick))
+                loop.pending.append(req)
+        while loop.pending or any(s is not None for s in loop.slots):
+            while loop.pending and loop.admit(loop.pending[0]):
+                loop.pending.popleft()
+            loop.step()
+            outstanding = _scan_done(outstanding, lat, time.perf_counter())
+    sync(dev)
+    return time.perf_counter() - t0, lat, reqs, loop.state
+
+
+def drive_fleet(state, schedule, dev):
+    """The overlapped fleet (bench_serving_load's `_drive_fleet`): the whole
+    tick submitted up front, then steps until the tick's waves are reaped."""
+    import torch
+
+    from repro_torch import serving
+
+    fleet = serving.GPFleetLoop(state, batch=FLEET["batch"],
+                                generator=torch.Generator(device=dev).manual_seed(5),
+                                max_pending=FLEET["max_pending"])
+    outstanding, lat, reqs = [], [], []
+    t0 = time.perf_counter()
+    for ops in schedule:
+        t_tick = time.perf_counter()
+        for kind, *payload in ops:
+            if kind == "observe":
+                fleet.submit_observe([payload[0]], [payload[1]])
+            elif kind == "forget":
+                fleet.submit_forget(payload[0])
+            else:
+                req = serving.GPRequest(nodes=payload[0])
+                reqs.append(req)
+                while not fleet.submit(req):
+                    fleet.step()
+                    outstanding = _scan_done(outstanding, lat, time.perf_counter())
+                outstanding.append((req, t_tick))
+        fleet.step()
+        while fleet._inflight is not None or any(s is not None for s in fleet.slots):
+            fleet.step()
+            outstanding = _scan_done(outstanding, lat, time.perf_counter())
+        outstanding = _scan_done(outstanding, lat, time.perf_counter())
+    while outstanding:
+        fleet.step()
+        outstanding = _scan_done(outstanding, lat, time.perf_counter())
+    fleet.drain()
+    sync(dev)
+    return time.perf_counter() - t0, lat, reqs, fleet.serve_state
+
+
+def fleet_kill_ops(fleet) -> None:
+    """The JAX fleet chaos test's op stream at the fleet phase's width: six
+    rounds of a 2-node observe (a forget in the third) and a 4-node query,
+    each drained; kill_at 5 falls on the 4th observe."""
+    from repro_torch import serving
+
+    n = FLEET["n_nodes"]
+    rng = np.random.default_rng(FLEET["seed"] + 1)
+    for i in range(6):
+        fleet.submit_observe(rng.integers(0, n, 2), rng.standard_normal(2))
+        if i == 2:
+            fleet.submit_forget(0)
+        fleet.submit(serving.GPRequest(nodes=rng.integers(0, n, 4).astype(np.int32)))
+        fleet.drain()
+
+
+_FLEET_CHILD = """
+import sys
+sys.path[:0] = [{src!r}, {root!r}]
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+import chip_smoke
+from repro_torch import serving
+from repro_torch.resilience import Journal
+
+chip_smoke.FLEET.update({fleet!r})   # the parent's configuration
+empty, _, _ = chip_smoke.fleet_problem(torch.device({device!r}))
+fleet = serving.GPFleetLoop(empty, batch=chip_smoke.FLEET["batch"],
+                            journal=Journal({jpath!r}))
+chip_smoke.fleet_kill_ops(fleet)
+raise SystemExit("kill_at never fired")
+"""
+
+
+def host_profile(label: str, fn, top: int = 4) -> list:
+    """cProfile one call of ``fn`` and print the functions with the most
+    host time of their own, each with its share of the call's total."""
+    import cProfile
+    import pstats
+
+    prof = cProfile.Profile()
+    prof.enable()
+    fn()
+    prof.disable()
+    stats = pstats.Stats(prof).stats
+    total = sum(v[2] for v in stats.values())
+    rows = sorted(((v[2], f"{Path(k[0]).name}:{k[2]}") for k, v in stats.items()),
+                  reverse=True)[:top]
+    print(f"[host] {label}: {total * 1e3:.1f} ms of host time under cProfile; own "
+          "time: " + "; ".join(f"{name} {t * 1e3:.1f} ms ({100 * t / total:.0f}%)"
+                               for t, name in rows))
+    return [(name, t, t / total) for t, name in rows]
+
+
+def _latency(lat) -> tuple[float, float]:
+    a = np.asarray(lat) * 1e3
+    return float(np.percentile(a, 50)), float(np.percentile(a, 99))
+
+
+def phase_fleet(dev) -> dict:
+    """Async serving, the sharded serving state and the distributed GP at
+    world size 1, and the fleet's kill-and-recover (see FLEET, DIST)."""
+    import os
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch import serving, solvers
+    from repro_torch.core import linops, walks
+    from repro_torch.distributed import gp_shard
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.resilience import KILL_EXIT_CODE, faults, read_journal, recover
+
+    c = FLEET
+    total: dict = {}
+    t_phase = time.perf_counter()
+
+    def part(label, need, fn, absent=()):
+        reset_counts()
+        out = fn()
+        sync(dev)
+        counts = counts_now()
+        gate_counts(label, counts, need)
+        for name in absent:
+            expect(counts[name] == 0, f"{label} launched {name} {counts[name]} times")
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        return out
+
+    empty, warm_nodes, warm_y = fleet_problem(dev)
+    schedule = fleet_schedule(c["n_nodes"], c["ticks"], c["seed"])
+    n_req = sum(op[0] == "query" for ops in schedule for op in ops)
+    n_mut = sum(op[0] != "query" for ops in schedule for op in ops)
+    drives = {"sync": drive_sync, "fleet": drive_fleet}
+
+    def fresh():
+        st = serving.ingest(empty, warm_nodes, warm_y)
+        sync(dev)
+        return st
+
+    # 1. The traffic replay, sync loop against fleet, in turns.
+    def replay():
+        for fn in drives.values():
+            fn(fresh(), schedule[:c["warm_ticks"]], dev)
+        runs: dict = {}
+        for name in c["order"]:
+            runs.setdefault(name, []).append(drives[name](fresh(), schedule, dev))
+        return runs
+
+    runs = part("fleet replay", ("walk_sampler", "gram_block"), replay)
+    want = runs["sync"][0][2]
+    wm = np.concatenate([r.mean for r in want])
+    wv = np.concatenate([r.var for r in want])
+    stats = {}
+    for name, reps in runs.items():
+        rows = []
+        for wall, lat, reqs, _ in reps:
+            expect(len(reqs) == n_req and len(lat) == n_req
+                   and all(r.done for r in reqs), f"fleet replay {name}: unanswered requests")
+            for got, ref, what in ((np.concatenate([r.mean for r in reqs]), wm, "mean"),
+                                   (np.concatenate([r.var for r in reqs]), wv, "var")):
+                _, rel = rel_err(torch.from_numpy(got), torch.from_numpy(ref))
+                expect(rel <= KERNEL_RTOL,
+                       f"fleet replay {name}: {what} vs the sync loop rel {rel:.2e}")
+            p50, p99 = _latency(lat)
+            rows.append(dict(qps=n_req / wall, p50_ms=p50, p99_ms=p99, wall_s=wall))
+        stats[name] = dict(reps=rows, qps=max(r["qps"] for r in rows),
+                           p50_ms=min(r["p50_ms"] for r in rows),
+                           p99_ms=min(r["p99_ms"] for r in rows))
+        print(f"[fleet] {name}: {n_req} requests ({n_req * c['req']} nodes) and "
+              f"{n_mut} mutations over {c['ticks']} ticks; per replay (in the order "
+              f"{'/'.join(c['order'])}): " + "; ".join(
+                  f"{r['qps']:.1f} requests/s, p50 {r['p50_ms']:.2f} ms, p99 "
+                  f"{r['p99_ms']:.2f} ms, wall {r['wall_s']:.3f} s" for r in rows))
+    ratio = stats["fleet"]["qps"] / stats["sync"]["qps"]
+    print(f"[fleet] best of replays: fleet {stats['fleet']['qps']:.1f} vs sync "
+          f"{stats['sync']['qps']:.1f} requests/s (ratio {ratio:.3f}); p99 "
+          f"{stats['fleet']['p99_ms']:.2f} vs {stats['sync']['p99_ms']:.2f} ms; every "
+          f"request's means and variances within {KERNEL_RTOL:g} of scale of the sync "
+          "loop's")
+    lo, hi = c["busy_ticks"]
+    window = schedule[lo:hi]
+
+    def advanced():
+        """The state the loops hold at tick ``lo``: the earlier ticks'
+        mutations applied eagerly."""
+        st = fresh()
+        for ops in schedule[:lo]:
+            for kind, *payload in ops:
+                if kind == "observe":
+                    st = serving.observe(st, payload[0], payload[1], on_overflow="reject")
+                elif kind == "forget":
+                    st = serving.forget(st, payload[0])
+        sync(dev)
+        return st
+
+    busy = {}
+    for name, fn in drives.items():
+        warm_s = fn(advanced(), window, dev)[0]
+        st = advanced()
+        busy[name] = profile_busy(f"fleet {name}, ticks {lo}-{hi - 1}",
+                                  lambda fn=fn, st=st: fn(st, window, dev), dev, warm_s)
+        busy[name]["warm_s"] = warm_s
+        st = advanced()
+        busy[name]["host"] = host_profile(f"fleet {name}, ticks {lo}-{hi - 1}",
+                                          lambda fn=fn, st=st: fn(st, window, dev))
+    print(f"[fleet] replay, warm-ups and busy windows in "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    replay_state = runs["fleet"][-1][3]
+
+    # 2 and 3 run under a one-rank process group: NCCL on the card (no two
+    # ranks share a card), gloo when rehearsed on the CPU.
+    store = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_")
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+    dist.init_process_group(backend, init_method=f"file://{store.name}/pg",
+                            world_size=1, rank=0)
+    try:
+        mesh = tmesh.make_serving_mesh()
+        rng = np.random.default_rng(c["seed"] + 2)
+        n = c["n_nodes"]
+
+        def sharded():
+            sh = serving.ShardedServeState(replay_state, mesh=mesh)
+            single = replay_state
+            checks = []
+
+            def same(label, qnodes, one):
+                for a, b, what in zip(sh.posterior_moments(qnodes),
+                                      serving.posterior_moments(one, qnodes),
+                                      ("mean", "var")):
+                    expect(torch.equal(a, b), f"sharded {label} {what} not bit-equal "
+                           f"(max diff {float((a - b).abs().max()):.3e})")
+                checks.append(label)
+
+            q = rng.choice(n, c["n_moments"], replace=False).astype(np.int32)
+            same(f"moments on {len(q)} nodes", q, single)
+            cand = rng.choice(n, c["n_cand"], replace=False).astype(np.int32)
+            gen = lambda: torch.Generator(device=dev).manual_seed(7)  # noqa: E731
+            expect(torch.equal(sh.thompson_draw(cand, gen(), n_samples=c["n_samples"]),
+                               serving.thompson_draw(single, cand, gen(),
+                                                     n_samples=c["n_samples"])),
+                   "sharded Thompson draw not bit-equal")
+            checks.append(f"{c['n_samples']}-sample Thompson draw on {len(cand)}")
+            obs2 = rng.choice(n, 2, replace=False).astype(np.int32)
+            one = serving.observe_batch(single, obs2, [0.5, -0.2])
+            one = serving.forget_batch(serving.forget(one, 0), [1, 0])
+            sh.observe_batch(obs2, [0.5, -0.2])
+            sh.forget(0)
+            sh.forget_batch([1, 0])
+            same("after observe_batch / forget / forget_batch", q, one)
+            with faults.use_faults("chol_fail:1"):
+                one = serving.observe_batch(one, obs2[:1], [1.0])
+                sh.observe_batch(obs2[:1], [1.0])
+            expect(int(one.needs_refit) == 0 == int(sh.state.needs_refit),
+                   "the refit fallback left needs_refit set")
+            same("after a chol_fail:1 append and its refit", q, one)
+            nodes = [rng.choice(n, c["req"], replace=False).astype(np.int32)
+                     for _ in range(c["n_requests"])]
+            gen9 = lambda: torch.Generator(device=dev).manual_seed(9)  # noqa: E731
+            a = serving.GPServeLoop(one, batch=c["batch"], generator=gen9()).run(
+                [serving.GPRequest(nodes=x) for x in nodes])
+            b = serving.GPFleetLoop(serving.ShardedServeState(one, mesh=mesh),
+                                    batch=c["batch"], generator=gen9()).run(
+                [serving.GPRequest(nodes=x) for x in nodes])
+            expect(all(x.done and y.done and all(
+                np.array_equal(getattr(x, k), getattr(y, k)) for k in ("mean", "var", "draw"))
+                for x, y in zip(a, b)), "fleet over the sharded state differs from "
+                "the sync engine")
+            checks.append(f"a fleet over it on {len(nodes)} requests of {c['req']} "
+                          "(means, variances, draws)")
+            return checks
+
+        checks = part("fleet sharded", ("walk_sampler", "gram_block"), sharded)
+        print(f"[fleet] ShardedServeState at world size 1 ({backend}): bit-equal to "
+              "the single-device state: " + "; ".join(checks))
+
+        # 3. The distributed GP on the main-path trace at N = 10⁶.
+        graph, wcfg, f, train, y = make_problem(MAIN, dev)
+        seed = walks.walk_seed(torch.Generator().manual_seed(7))
+        strat = solvers.SHARDED_DEFAULT
+        b = torch.randn(MAIN["n_nodes"], generator=torch.Generator(device=dev)
+                        .manual_seed(11), device=dev)
+
+        def reference():
+            trace = walks.sample_walks(graph, seed, wcfg.n_walkers, wcfg.p_halt,
+                                       wcfg.l_max)
+            t0 = time.perf_counter()
+            res = solvers.solve(linops.shifted(trace, f, DIST["sigma_n2"]), b, strat)
+            sync(dev)
+            return trace, res, time.perf_counter() - t0
+
+        trace, ref, ref_s = part("fleet single-device solve", ("khat_fused",), reference)
+        expect(bool(ref.converged.all()), "single-device solve did not converge")
+
+        def sharded_gp():
+            out = {}
+            for label, fn in (
+                ("sharded_cg_solve", lambda: gp_shard.sharded_cg_solve(
+                    trace, f, b, mesh, sigma_n2=DIST["sigma_n2"], strategy=strat,
+                    return_diagnostics=True)),
+                ("sharded_cg_solve_chunked", lambda: gp_shard.sharded_cg_solve_chunked(
+                    graph, f, b, mesh, seed, wcfg, chunk=DIST["chunk"],
+                    sigma_n2=DIST["sigma_n2"], strategy=strat, return_diagnostics=True)),
+                ("sharded_posterior_sample", lambda: gp_shard.sharded_posterior_sample(
+                    trace, mask, f, y_full, torch.Generator(device=dev).manual_seed(5),
+                    mesh, sigma_n2=DIST["sigma_n2"], return_diagnostics=True))):
+                sync(dev)
+                t0 = time.perf_counter()
+                res = fn()
+                sync(dev)
+                out[label] = (*res, time.perf_counter() - t0)
+            return out
+
+        mask = torch.zeros(MAIN["n_nodes"], device=dev)
+        mask[train.long()] = 1.0
+        y_full = torch.zeros(MAIN["n_nodes"], device=dev)
+        y_full[train.long()] = y
+        gp = part("fleet distributed", ("ell_spmv", "ell_spmv_t", "walk_sampler"),
+                  sharded_gp, absent=("khat_fused",))
+        for label in ("sharded_cg_solve", "sharded_cg_solve_chunked"):
+            x, iters, conv, wall = gp[label]
+            _, rel = rel_err(x, ref.x)
+            expect(bool(conv) and rel <= DIST["rtol"],
+                   f"{label}: converged {bool(conv)}, rel {rel:.2e} to the single-device solve")
+            print(f"[fleet] {label} at N = {MAIN['n_nodes']} (K = {wcfg.slots}, world "
+                  f"size 1, {backend}): {iters} iterations in {wall * 1e3:.1f} ms, rel "
+                  f"{rel:.2e} of the single-device solve ({ref.iters} iterations, "
+                  f"{ref_s * 1e3:.1f} ms on the fused K̂ kernel)")
+        s, iters, conv, wall = gp["sharded_posterior_sample"]
+        expect(tuple(s.shape) == (MAIN["n_nodes"],) and bool(torch.isfinite(s).all()),
+               f"sharded posterior sample {tuple(s.shape)} not finite")
+        print(f"[fleet] sharded_posterior_sample over {len(train)} observed rows: shape "
+              f"{tuple(s.shape)}, finite, {iters} iterations (converged {bool(conv)}) "
+              f"in {wall * 1e3:.1f} ms")
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    print(f"[fleet] through the distributed GP in {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+    # 4. The fleet killed at its 4th observe in a child process, recovered here.
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_fleet_kill_")
+    try:
+        jpath = os.path.join(tmp.name, "fleet.jsonl")
+        child = _FLEET_CHILD.format(src=str(SRC), root=str(ROOT), fleet=FLEET,
+                                    device=str(dev), jpath=jpath)
+        env = dict(os.environ, REPRO_FAULTS=f"kill_at:{c['kill_at']}")
+        t0 = time.perf_counter()
+        proc = subprocess.run([sys.executable, "-c", child], env=env,
+                              capture_output=True, text=True, timeout=300)
+        child_s = time.perf_counter() - t0
+        expect(proc.returncode == KILL_EXIT_CODE
+               and "hit at 'serving.fleet.observe'" in proc.stderr,
+               f"fleet child exited {proc.returncode}: {proc.stderr[-2000:]}")
+        events = read_journal(jpath)
+        kinds = [e["type"] for e in events]
+        expect(kinds == ["observe"] * 3 + ["forget", "observe"],
+               f"fleet journal after the kill: {kinds}")
+
+        def recovery():
+            t0 = time.perf_counter()
+            st, n_ev = recover(empty, jpath, None)
+            sync(dev)
+            rec_s = time.perf_counter() - t0
+            fold = empty
+            for ev in events:
+                fold = (serving.observe_batch(fold, ev["nodes"], ev["ys"])
+                        if ev["type"] == "observe" else serving.forget(fold, ev["slot"]))
+            return st, n_ev, rec_s, fold
+
+        st, n_ev, rec_s, fold = part("fleet recover", ("walk_sampler", "gram_block"),
+                                     recovery)
+        q = torch.from_numpy(np.random.default_rng(c["seed"] + 3).choice(
+            c["n_nodes"], c["n_moments"], replace=False).astype(np.int32)).to(dev)
+        expect(n_ev == len(events) and int(st.count) == 7 and all(
+            torch.equal(a, b) for a, b in zip(serving.posterior_moments(st, q),
+                                              serving.posterior_moments(fold, q))),
+            "recovered fleet state differs from the journalled fold")
+        print(f"[fleet] kill_at:{c['kill_at']}: child exit {proc.returncode} in "
+              f"{child_s:.1f} s ('serving.fleet.observe'), journal {kinds} (the killed "
+              f"observe written ahead of its dispatch); recover of {n_ev} events "
+              f"{rec_s * 1e3:.1f} ms, bit-equal to the journalled fold on "
+              f"{c['n_moments']} nodes")
+    finally:
+        tmp.cleanup()
+    return dict(counts=total, stats=stats, ratio=ratio, busy=busy, gp=gp,
+                child_s=child_s, recover_ms=rec_s * 1e3)
+
+
 def _tensors(packed):
     """The tensors of a packed ServeState, the trace's three in order."""
     for x in packed:
@@ -3338,14 +3936,14 @@ def phase_timing(dev, results: dict) -> list[dict]:
     seed = main["out"]["seed"]
     # Launches of each kernel summed over the paths' runs (main, fit,
     # serving, the two BO loops, solvers, lm, baselines, svgp, jlt, obs and
-    # the parts of resilience), each counted from 0.
+    # the parts of resilience and fleet), each counted from 0.
     path_counts = [main["counts"], results["fit"]["counts"],
                    results["serving"]["counts"],
                    *(results["bo"][e]["counts"] for e in ("incremental",
                                                           "refit-chunked")),
                    results["solvers"]["counts"], results["lm"]["counts"],
                    *(results[p]["counts"] for p in ("baselines", "svgp", "jlt",
-                                                     "obs", "resilience"))]
+                                                     "obs", "resilience", "fleet"))]
     counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     nodes = torch.arange(n, dtype=torch.int32, device=dev)
     wkw = dict(n_walkers=wcfg.n_walkers, p_halt=wcfg.p_halt, l_max=wcfg.l_max)
@@ -4041,6 +4639,7 @@ def main() -> int:
         ("jlt", lambda: phase_jlt(dev)),
         ("obs", lambda: phase_obs(dev)),
         ("resilience", lambda: phase_resilience(dev)),
+        ("fleet", lambda: phase_fleet(dev)),
     ]
     results = {}
     for name, fn in phases:

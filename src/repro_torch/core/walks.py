@@ -60,9 +60,9 @@ class WalkTrace:
         use and kept on the trace: it depends on ``cols`` and on which
         ``loads`` are 0, not on the modulation, so every product with this
         trace — every CG iteration, fit step and later call — reads the same
-        one.  The port never writes a trace's tensors in place (serving
-        builds new ones), yet the key holds the tensors' versions too, so an
-        in-place write rebuilds the index instead of reading a stale one."""
+        one.  The key holds the tensors' versions too, so an in-place write
+        (a donated serving update writes its state's trace) rebuilds the
+        index instead of reading a stale one."""
         key = (n_nodes, self.cols._version, self.loads._version)
         kept = self.__dict__.get("_column_index")
         if kept is None or kept[0] != key:

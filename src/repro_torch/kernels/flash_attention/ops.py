@@ -9,6 +9,13 @@ The kernel reads q, k and v through their strides (the head dim must be
 contiguous) and writes its output as [B, Sq, H, D] memory, returned as the
 [B, H, Sq, D] view, so that the output projection reads it without a copy.
 
+Gradients: when grad mode is on and q, k or v requires grad, the call goes
+through an autograd Function whose forward is the same kernel launch and
+whose backward recomputes ``mha_ref`` under ``torch.enable_grad()`` and takes
+``torch.autograd.grad`` of it (the JAX package has no backward kernel to
+port; its training attention is ``mha_ref`` too).  The Function saves only
+q, k and v; with nothing requiring grad the kernel is launched directly.
+
 The kernel has two instances, and :func:`route` is the rule between them, a
 function of the dtype, the head dim and the alignment alone (no variable or
 argument selects one): bf16 with D a multiple of 8 up to 256 and every base
@@ -115,8 +122,33 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError(f"{name}: window must be None or ≥ 1, got {window}")
     if softcap is not None and softcap <= 0:
         raise ValueError(f"{name}: softcap must be None or > 0, got {softcap}")
-    return launch(route(q.dtype, q.shape[3], aligned(q, k, v)), q, k, v,
-                  causal=causal, window=window, softcap=softcap)
+    inst = route(q.dtype, q.shape[3], aligned(q, k, v))
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        return _FlashFn.apply(q, k, v, inst, causal, window, softcap)
+    return launch(inst, q, k, v, causal=causal, window=window, softcap=softcap)
+
+
+class _FlashFn(torch.autograd.Function):
+    """The kernel's forward; the backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, inst, causal, window, softcap):
+        ctx.save_for_backward(q, k, v)
+        ctx.kw = dict(causal=causal, window=window, softcap=softcap)
+        return launch(inst, q, k, v, **ctx.kw)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:3]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = mha_ref(*ins, **ctx.kw)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], g))
+        return (*(next(grads) if n else None for n in need),
+                None, None, None, None)
 
 
 def launch(inst: str, q, k, v, *, causal: bool, window, softcap):

@@ -7,6 +7,13 @@ kernel sees ``[M, D]``), float32 or bfloat16, and returns ``x``'s dtype; the
 scale is read as float32.  The JAX wrapper's ``use_pallas``/``interpret``
 switches have no counterpart: the device decides.
 
+Gradients: when grad mode is on and x or the scale requires grad, the call
+goes through an autograd Function whose forward is :func:`launch` and whose
+backward recomputes ``rmsnorm_ref`` under ``torch.enable_grad()`` and takes
+``torch.autograd.grad`` of it (the JAX package has no backward kernel to
+port: its ``rms_norm`` is plain ``jnp``).  It saves only x and the scale;
+with nothing requiring grad :func:`launch` is called directly.
+
 A decode step calls this 49 times and is bound by host time, so the path on
 the card does no more than it must: no cast or copy of a scale that is
 already float32 and contiguous, no reshape of an x that is already 2-D and
@@ -34,9 +41,37 @@ _FN = []   # the bound entry point, once built
 
 def apply(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """y = x·rsqrt(mean(x²) + eps)·(1 + scale) over the last dim."""
-    name = "rmsnorm"
-    if not build.on_cuda(name, x, scale):
+    if not build.on_cuda("rmsnorm", x, scale):
         return rmsnorm_ref(x, scale, eps)
+    if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
+        return _RmsNormFn.apply(x, scale, eps)
+    return launch(x, scale, eps)
+
+
+class _RmsNormFn(torch.autograd.Function):
+    """The kernel's forward; the backward through the plain version."""
+
+    @staticmethod
+    def forward(ctx, x, scale, eps):
+        ctx.save_for_backward(x, scale)
+        ctx.eps = eps
+        return launch(x, scale, eps)
+
+    @staticmethod
+    def backward(ctx, g):
+        need = ctx.needs_input_grad[:2]
+        with torch.enable_grad():
+            ins = [t.detach().requires_grad_(n)
+                   for t, n in zip(ctx.saved_tensors, need)]
+            out = rmsnorm_ref(*ins, ctx.eps)
+            grads = iter(torch.autograd.grad(
+                out, [t for t in ins if t.requires_grad], g))
+        return (*(next(grads) if n else None for n in need), None)
+
+
+def launch(x: torch.Tensor, scale: torch.Tensor, eps: float) -> torch.Tensor:
+    """Launch the kernel on CUDA tensors (checks, then one launch)."""
+    name = "rmsnorm"
     d = x.shape[-1]
     if scale.dtype != torch.float32 or not scale.is_contiguous():
         scale = scale.to(torch.float32).contiguous()

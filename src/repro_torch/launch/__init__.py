@@ -1,1 +1,4 @@
-"""Launchers of the LM scaffold (port of ``repro/launch/``): serving so far."""
+"""Launchers (port of ``repro/launch/``): the LM's serving loop and the
+serving mesh over ``torch.distributed``."""
+from . import mesh  # noqa: F401
+from .mesh import ServingMesh, make_serving_mesh, spawn_ranks  # noqa: F401

@@ -2,8 +2,10 @@
 gated MLP, init (port of ``repro/models/layers.py``).
 
 ``rms_norm`` goes through the rmsnorm kernel's wrapper (the CUDA kernel on
-the card, its plain version on the CPU); ``rope`` and ``swiglu`` are plain
-tensor code, as the JAX package leaves them to XLA."""
+the card, its plain version on the CPU); on the card it is differentiable
+through an autograd Function whose backward runs the plain version
+(kernels/rmsnorm/ops.py).  ``rope`` and ``swiglu`` are plain tensor code, as
+the JAX package leaves them to XLA."""
 from __future__ import annotations
 
 import torch

@@ -18,6 +18,15 @@ exact.  The JAX ``lax.scan`` over appends is a Python loop: one walk launch
 and one ``gram_block`` launch per append, with the health checks kept on the
 device (masked writes, no host read inside the loop).
 
+The fleet's async paths, :func:`observe_batch_async` and
+:func:`forget_batch_async`, read nothing back to the host.  PyTorch has no
+buffer donation, so their ``donate=True`` (and :func:`refit_alpha`'s) takes
+the in-place form of it: the new values are written into the input state's
+mutable tensors (``nodes``, ``y``, ``count``, the trace's three, ``chol``,
+``alpha`` and the flags), and the returned state holds those very tensors.
+After a donated call the old state object reads the new values; the graph,
+``f`` and ``σ²`` are never written.
+
 ``torch.linalg.cholesky`` raises where ``jnp.linalg.cholesky`` returns NaN,
 so the factorisations use ``torch.linalg.cholesky_ex`` and treat a non-zero
 ``info`` or a non-finite factor as the failure the JAX jitter ladder tests
@@ -36,9 +45,7 @@ Fault injection (``resilience.faults``): the append's Schur complement is
 a ``corrupt_schur`` site, the lazily sampled rows are poisoned by
 ``query_rows``, and :func:`ingest` — the from-scratch parity reference,
 with no incremental guard to catch a corrupted bulk load — runs with the
-plan pinned off.  Not in this slice: the ``*_async`` (buffer-donating)
-variants and the ``donate`` option of :func:`refit_alpha`, which belong to
-the async serving of the fleet.
+plan pinned off.
 """
 from __future__ import annotations
 
@@ -85,10 +92,53 @@ def _as_tensor(x, dtype, dev) -> torch.Tensor:
                                              dtype=dtype).reshape(-1)
 
 
+def _to_device_async(x, dtype, dev) -> torch.Tensor:
+    """``x`` as a flat tensor on ``dev`` without a host synchronisation: an
+    array goes through pinned memory and a non-blocking copy on the card (a
+    copy from pageable memory may wait for the stream)."""
+    if isinstance(x, torch.Tensor) and x.device == dev:
+        return x.to(dtype).reshape(-1)
+    t = torch.as_tensor(np.asarray(
+        x.cpu() if isinstance(x, torch.Tensor) else x)).to(dtype).reshape(-1)
+    if dev.type != "cuda":
+        return t.clone()
+    return t.pin_memory().to(dev, non_blocking=True)
+
+
+def copy_mutable(state: ServeState) -> ServeState:
+    """``state`` with private copies of its mutable tensors: what a donated
+    update may write without reaching another state (a functional update
+    shares the leaves it leaves unchanged with its input)."""
+    return _unpack(state, [
+        WalkTrace(x.cols.clone(), x.loads.clone(), x.lens.clone())
+        if isinstance(x, WalkTrace) else x.clone() for x in _pack(state)])
+
+
+def _donate(state: ServeState, new: ServeState) -> ServeState:
+    """The in-place form of donation: write ``new``'s mutable leaves into
+    ``state``'s tensors and return ``new`` holding ``state``'s tensors."""
+    out = {}
+    for name in _MUTABLE:
+        old, fresh = getattr(state, name), getattr(new, name)
+        if name == "trace":
+            for f in ("cols", "loads", "lens"):
+                getattr(old, f).copy_(getattr(fresh, f))
+        else:
+            old.copy_(fresh)
+        out[name] = old
+    return dataclasses.replace(new, **out)
+
+
 def cholesky_checked(a: torch.Tensor):
-    """(L, ok): the lower Cholesky factor and a 0-d bool tensor that is True
-    when it succeeded — no host read, no exception."""
+    """(L, ok): the lower Cholesky factor, row-major, and a 0-d bool tensor
+    that is True when it succeeded — no host read, no exception.
+
+    ``cholesky_ex`` returns a column-major factor; every state leaf is kept
+    row-major, so that a state's arithmetic does not depend on which update
+    made it and a broadcast of its raw memory (serving/sharded.py) lands in
+    the same layout on every rank."""
     chol, info = torch.linalg.cholesky_ex(a)
+    chol = chol.contiguous()
     return chol, (info == 0) & torch.all(torch.isfinite(chol))
 
 
@@ -247,6 +297,41 @@ def observe(state: ServeState, node, y, **kwargs) -> ServeState:
     return observe_batch(state, [node], [y], **kwargs)
 
 
+def observe_batch_async(state: ServeState, nodes, ys, *,
+                        donate: bool = True) -> ServeState:
+    """Dispatch a guarded batched append with **no host synchronisation**.
+
+    The fleet's mutation path: :func:`observe_batch` reads ``count`` before
+    it appends and the flags after, each a full synchronisation that
+    serialises the wave pipeline.  This variant only enqueues work.
+    Overflow behaves like ``on_overflow="reject"`` (the masked drop,
+    reported by the ``overflow`` flag), nothing is refitted here, and the
+    caller reads the health flags later, where it blocks anyway
+    (``GPFleetLoop._check_flags``).  The result equals
+    ``observe_batch(state, nodes, ys, on_overflow="reject",
+    auto_refit=False)`` bit for bit.
+
+    ``donate=True`` (in-place, see the module docstring): the new values are
+    written into ``state``'s mutable tensors and the returned state holds
+    them, so **after the call the old state object reads the new values**
+    — keep using the returned one.  Any other state that shares those
+    tensors (a functional update shares the leaves it did not change) reads
+    them too: donate only a state whose tensors are its own
+    (:func:`copy_mutable`).  ``donate=False`` leaves ``state`` as it was."""
+    dev = state.device
+    nodes = _to_device_async(nodes, torch.int32, dev)
+    ys = _to_device_async(ys, torch.float32, dev)
+    new = state
+    for i in range(nodes.shape[0]):
+        new = _append(new, nodes[i], ys[i])
+    if obs.enabled():
+        obs.tap("serving.observe.overflow", new.overflow - state.overflow,
+                kind="counter")
+    new = dataclasses.replace(new, alpha=solve_chol(new.chol, new.y))
+    obs.inc("serving.observations", int(nodes.shape[0]))
+    return _donate(state, new) if donate else new
+
+
 def _cholupdate(chol: torch.Tensor, x: torch.Tensor, start: int = 0,
                 stop: int | None = None) -> torch.Tensor:
     """L̃ with L̃L̃ᵀ = LLᵀ + xxᵀ (LINPACK dchud, columns swept in order).
@@ -272,9 +357,17 @@ def _cholupdate(chol: torch.Tensor, x: torch.Tensor, start: int = 0,
     return ell
 
 
-def _forget_step(state: ServeState, slot: int, count: int) -> ServeState:
+def _forget_step(state: ServeState, slot: int, count,
+                 stop: int | None = None) -> ServeState:
     """One downdate of the observation in buffer position ``slot``, α left
-    stale (the caller re-solves it once after a run of forgets)."""
+    stale (the caller re-solves it once after a run of forgets).
+
+    ``count`` is the live count before the step: a host int (the sweep then
+    stops at the new count) or the state's 0-d device tensor (no host read:
+    the sweep runs to ``stop``, by default capacity — its columns past the
+    new count touch only the dead block, which the identity then
+    overwrites — so any ``stop`` at or above the new count gives the same
+    result, bit for bit)."""
     c = state.capacity
     dev = state.device
     idx = torch.arange(c, device=dev)
@@ -286,7 +379,12 @@ def _forget_step(state: ServeState, slot: int, count: int) -> ServeState:
     x = torch.where(idx >= slot, chol[:, slot][src], torch.zeros_like(idx,
                     dtype=chol.dtype))
     new_count = count - 1
-    new_chol = _cholupdate(chol[src][:, src], x, start=slot, stop=new_count)
+    on_host = isinstance(new_count, int)
+    if on_host:
+        stop = new_count
+    elif stop is None:
+        stop = c
+    new_chol = _cholupdate(chol[src][:, src], x, start=slot, stop=stop)
     dead = idx >= new_count
     new_chol = torch.where(dead[:, None] | dead[None, :],
                            torch.eye(c, dtype=new_chol.dtype, device=dev),
@@ -298,7 +396,8 @@ def _forget_step(state: ServeState, slot: int, count: int) -> ServeState:
         state,
         nodes=torch.where(live, state.nodes[src], 0),
         y=torch.where(live, state.y[src], 0.0),
-        count=torch.full_like(state.count, new_count),
+        count=(torch.full_like(state.count, new_count) if on_host
+               else new_count),
         trace=WalkTrace(
             cols=torch.where(live2, tr.cols[src], 0),
             loads=torch.where(live2, tr.loads[src], 0.0),
@@ -332,6 +431,34 @@ def forget_batch(state: ServeState, slots) -> ServeState:
         state = _forget_step(state, s, count)
         count -= 1
     return dataclasses.replace(state, alpha=solve_chol(state.chol, state.y))
+
+
+def forget_batch_async(state: ServeState, slots, *, donate: bool = True,
+                       live_bound: int | None = None) -> ServeState:
+    """:func:`forget_batch` with no host synchronisation — the fleet's
+    forget path, one call per run of queued forgets.
+
+    ``count`` is never read: each downdate takes the dead mask from the
+    device count and sweeps its columns up to a bound on the live count
+    instead of to the count itself — ``live_bound``, one the caller knows
+    without reading the device (the fleet keeps one: an append raises the
+    count by at most one, a forget lowers it by one), or capacity.  Any
+    bound at or above the count gives :func:`forget_batch`'s result bit
+    for bit.  The slots are not checked against the live count (that would
+    read it); each must lie in the live block, as in :func:`forget_batch`.
+    Same donation contract as :func:`observe_batch_async`: with
+    ``donate=True`` the old state object reads the new values."""
+    slots = [int(s) for s in np.asarray(
+        slots.cpu() if isinstance(slots, torch.Tensor) else slots).reshape(-1)]
+    bound = state.capacity if live_bound is None else min(live_bound,
+                                                          state.capacity)
+    new, count = state, state.count
+    for s in slots:
+        bound -= 1
+        new = _forget_step(new, s, count, stop=max(bound, 0))
+        count = new.count
+    new = dataclasses.replace(new, alpha=solve_chol(new.chol, new.y))
+    return _donate(state, new) if donate else new
 
 
 def ingest(state: ServeState, nodes, ys) -> ServeState:
@@ -439,6 +566,7 @@ def refit_alpha(
     return_diagnostics: bool = False,
     escalate: bool = False,
     max_attempts: int = 3,
+    donate: bool = False,
 ):
     """Refresh the representer weights α after a hyperparameter move —
     **without** the O(m³) Cholesky refactorisation.
@@ -451,7 +579,12 @@ def refit_alpha(
     preconditioner, then 4× iteration budgets, warm-started), emitting a
     ``solver.escalation`` obs event per attempt — the serving-side twin of
     ``solvers.solve(..., escalate=True)``; a ``cg_stall`` fault plan forces
-    the first attempts to count as stalled."""
+    the first attempts to count as stalled.
+
+    ``donate=True`` writes the new α into the caller's ``state.alpha`` in
+    place (the in-place form of the JAX package's donation of the
+    warm-start buffer): after the call the old state object reads the new
+    α."""
     if strategy is None:
         strategy = solvers.SERVING_DEFAULT
     if strategy.preconditioner == "auto":
@@ -488,6 +621,9 @@ def refit_alpha(
         else:
             obs.inc("solver.escalation.exhausted")
         sp.block_on(alpha)
+    if donate:
+        state.alpha.copy_(alpha)
+        alpha = state.alpha
     state = dataclasses.replace(state, alpha=alpha)
     if return_diagnostics:
         return state, iters, converged

@@ -396,3 +396,51 @@ def test_gpu_batch_heads_past_a_grid_dimension(cuda, dtype):
     CUDA-core instance (B·H folded over grid.y and grid.z) and bf16 on the
     tensor cores (a 1-D grid), each against mha_ref."""
     _card_case(cuda, (2049, 32, 8, 16, 16, 64), {}, getattr(torch, dtype))
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrapper's CUDA branch on CPU tensors: ``build.on_cuda`` says yes
+    and ``launch`` is a stand-in that computes the plain version under
+    ``no_grad`` (as the kernel's result has no graph) into the kernel's
+    [B, Sq, H, D] memory layout, counting its calls."""
+    calls = []
+
+    def fake_launch(inst, q, k, v, *, causal, window, softcap):
+        calls.append(inst)
+        with torch.no_grad():
+            out = ref.mha_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+        return out.transpose(1, 2).contiguous().transpose(1, 2)
+
+    monkeypatch.setattr(ops.build, "on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(ops, "launch", fake_launch)
+    return calls
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("case", [CASES[1], CASES[4], CASES[5]])
+def test_autograd_function_backward_is_the_plain_versions(fake_card, case, dtype):
+    """On the CUDA branch with inputs that require grad, the forward is one
+    kernel launch and the backward equals autograd through ``mha_ref``
+    (exactly: the Function recomputes the same plain version); without
+    grad the kernel is launched directly and the result has no graph."""
+    shape, kw = _split(case)
+    tdt = getattr(torch, dtype)
+    qkv = [torch.from_numpy(a).to(tdt) for a in _inputs(shape)]
+    g = torch.from_numpy(np.random.default_rng(7).standard_normal(
+        (shape[0], shape[1], shape[3], shape[5])).astype(np.float32)).to(tdt)
+    for need in ((True, True, True), (False, True, False)):
+        ins = [t.clone().requires_grad_(n) for t, n in zip(qkv, need)]
+        out = ops.flash_attention(*ins, **kw)
+        assert type(out.grad_fn).__name__ == "_FlashFnBackward"
+        out.backward(g)
+        plain = [t.clone().requires_grad_(n) for t, n in zip(qkv, need)]
+        ref.mha_ref(*plain, **kw).backward(g)
+        for a, b, n in zip(ins, plain, need):
+            assert (a.grad is None) == (not n)
+            if n:
+                assert torch.equal(a.grad, b.grad)
+    assert len(fake_card) == 2
+    with torch.no_grad():
+        out = ops.flash_attention(*[t.requires_grad_(True) for t in qkv], **kw)
+    assert out.grad_fn is None and len(fake_card) == 3

@@ -253,3 +253,60 @@ def test_unported_kinds_raise():
     params = tmodel.init_params(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="sp_attn"):
         tmodel.forward(params, cfg, torch.zeros((1, 4)).long())
+
+
+# The gradient check of the card's kernels: danube at a narrow width (2
+# layers, d_model 256), float32.  Tolerance: each parameter's gradient
+# within 1e-3 of its own scale (two layers of float32 forward through the
+# kernels, whose sums run in another order than the plain versions', then
+# the same plain backward on both devices).
+GRAD_TOL = 1e-3
+
+
+@pytest.fixture
+def cuda():
+    """The CUDA device; the decision to skip is made here, never at import."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the CUDA kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+def _next_token_grads(params, cfg, tokens):
+    """Gradients of the mean next-token cross-entropy of ``forward``'s
+    logits with respect to every parameter (None where none flows)."""
+    leaves = tmodel.tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    logits, _ = tmodel.forward(params, cfg, tokens)
+    loss = torch.nn.functional.cross_entropy(
+        logits[:, :-1].reshape(-1, logits.shape[-1]), tokens[:, 1:].reshape(-1))
+    return loss, torch.autograd.grad(loss, leaves, allow_unused=True)
+
+
+@pytest.mark.gpu
+def test_gpu_forward_gradients_match_the_cpu(cuda):
+    """Autograd through ``forward`` on the card (rmsnorm and flash_attention
+    on their kernels) gives every parameter the gradient the CPU (plain
+    versions) gives it, within GRAD_TOL of that gradient's scale."""
+    from repro_torch import configs as cfgs
+
+    cfg = dataclasses.replace(
+        cfgs.get_config("h2o-danube-1.8b"), dtype="float32", cache_dtype="float32",
+        d_model=256, n_heads=4, n_kv_heads=2, head_dim=64, d_ff=512, vocab_size=1000,
+        stages=((2, cfgs.get_config("h2o-danube-1.8b").stages[0][1]),))
+    params = tmodel.init_params(cfg, seed=3, device=cuda)
+    tok = torch.from_numpy(np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 64)))
+    from repro_torch.kernels.flash_attention import ops as fops
+    from repro_torch.kernels.rmsnorm import ops as rops
+    before = (fops.LAUNCHES["flash_attention"], rops.LAUNCHES["rmsnorm"])
+    card_loss, card = _next_token_grads(params, cfg, tok.to(cuda))
+    assert fops.LAUNCHES["flash_attention"] - before[0] == 2
+    assert rops.LAUNCHES["rmsnorm"] - before[1] == 5
+    host = tmodel.tree_map(lambda a: a.detach().cpu(), params)
+    cpu_loss, want = _next_token_grads(host, cfg, tok)
+    close(card_loss, cpu_loss, GRAD_TOL)
+    assert len(card) == len(want)
+    for i, (c, w) in enumerate(zip(card, want)):
+        assert (c is None) == (w is None), f"parameter {i}: gradient on one device only"
+        if w is not None:
+            close(c, w, GRAD_TOL)

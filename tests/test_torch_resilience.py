@@ -7,7 +7,9 @@ Against the JAX package: a journal that either package writes replays in
 the other, and the recovered moments agree with the other package's live
 state to 1e-4 of scale.  Within the port, recovery from checkpoint +
 journal tail matches the live state (and an uninterrupted run, after a
-hard kill in a child process) to 1e-5, as the JAX tests hold it.
+hard kill in a child process) to 1e-5, as the JAX tests hold it; the
+async fleet killed between its write-ahead record and its dispatch
+recovers to the journalled fold bit for bit, as JAX's fleet test holds it.
 """
 import os
 import subprocess
@@ -283,6 +285,69 @@ def test_kill_and_recover_chaos(tmp_path):
     srv.close()
 
 
+_FLEET_CHILD = textwrap.dedent("""
+    import sys
+    sys.path.insert(0, {src!r})
+    sys.path.insert(0, {tests!r})
+    import numpy as np
+    from repro_torch import serving
+    from repro_torch.resilience import Journal
+    from test_torch_resilience import empty_state
+
+    fleet = serving.GPFleetLoop(                  # donate=True is the default
+        empty_state({device!r}, capacity=32), batch=8, journal=Journal({jpath!r}))
+    rng = np.random.default_rng(0)
+    for i in range(6):
+        fleet.submit_observe(rng.integers(0, 100, 2), rng.standard_normal(2))
+        if i == 2:
+            fleet.submit_forget(0)
+        fleet.submit(serving.GPRequest(nodes=rng.integers(0, 100, 4).astype(np.int32)))
+        fleet.drain()
+    raise SystemExit("kill_at never fired")
+""")
+
+
+def fleet_kill_and_recover(tmp_path, device):
+    """Kill a journalled, donating GPFleetLoop in a child process at its
+    5th kill point (kill_at:5: the 4th iteration's observe, after its
+    write-ahead record and before its dispatch), then recover here.
+    Returns (recovered state, the eager fold of the journalled ops)."""
+    jpath = str(tmp_path / "fleet_j.jsonl")
+    child = _FLEET_CHILD.format(src=str(ROOT / "src"), tests=str(ROOT / "tests"),
+                                device=str(device), jpath=jpath)
+    env = dict(os.environ, REPRO_FAULTS="kill_at:5")
+    proc = subprocess.run([sys.executable, "-c", child], env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == KILL_EXIT_CODE, proc.stderr
+    assert "hit at 'serving.fleet.observe'" in proc.stderr
+    # WAL ahead of dispatch: the killed observe is journalled, undispatched.
+    events = read_journal(jpath)
+    assert [e["type"] for e in events] == ["observe"] * 3 + ["forget", "observe"]
+    assert all(e["on_overflow"] == "reject" and e["auto_refit"]
+               for e in events if e["type"] == "observe")
+    empty = empty_state(device, capacity=32)
+    st, n = recover(empty, jpath, None)
+    assert n == len(events)
+    assert int(st.count) == 4 * 2 - 1            # 4 observes of 2, one forget
+    ref = empty
+    for ev in events:
+        if ev["type"] == "observe":
+            ref = serving.observe_batch(ref, ev["nodes"], ev["ys"])
+        else:
+            ref = serving.forget(ref, ev["slot"])
+    return st, ref
+
+
+def test_fleet_kill_and_recover_chaos(tmp_path):
+    """Chaos through the async fleet (the twin of the JAX test of this
+    name): the journal holds the killed op, and recovery equals the eager
+    fold of the journalled ops bit for bit."""
+    st, ref = fleet_kill_and_recover(tmp_path, CPU)
+    q = torch.arange(20, dtype=torch.int32)
+    for a, b in zip(serving.posterior_moments(st, q), serving.posterior_moments(ref, q)):
+        assert torch.equal(a, b)
+
+
 def test_bo_resume_through_the_checkpoint_manager(tmp_path):
     """The incremental BO loop checkpointed every round through
     CheckpointManager, as the driver twin does, and resumed mid-cycle
@@ -378,3 +443,13 @@ def test_gpu_resilient_server_matches_the_cpu(cuda, tmp_path):
     st, _, ref, *_ = kill_and_recover(tmp_path, cuda)
     for x, y in zip(serving.posterior_moments(st, q), serving.posterior_moments(ref, q)):
         close(x, y, 1e-5)
+
+
+@pytest.mark.gpu
+def test_gpu_fleet_kill_and_recover(cuda, tmp_path):
+    """The fleet's kill-and-recover on the card (the child never forks the
+    CUDA parent): recovery equals the journalled fold bit for bit."""
+    st, ref = fleet_kill_and_recover(tmp_path, cuda)
+    q = torch.arange(100, dtype=torch.int32, device=cuda)
+    for a, b in zip(serving.posterior_moments(st, q), serving.posterior_moments(ref, q)):
+        assert torch.equal(a, b)

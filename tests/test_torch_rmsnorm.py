@@ -222,3 +222,47 @@ def test_gpu_unaligned_row_base(cuda, dtype):
     assert x.is_contiguous() and x.data_ptr() % 16 != 0
     s = (0.1 * torch.randn(2 * d, device=cuda, dtype=torch.float64))[::2]
     _card_norm(cuda, x, s)
+
+
+@pytest.fixture
+def fake_card(monkeypatch):
+    """The wrapper's CUDA branch on CPU tensors: ``build.on_cuda`` says yes
+    and ``launch`` is a stand-in that computes the plain version under
+    ``no_grad`` (the kernel's result has no graph), counting its calls."""
+    calls = []
+
+    def fake_launch(x, scale, eps):
+        calls.append(tuple(x.shape))
+        with torch.no_grad():
+            return ref.rmsnorm_ref(x, scale, eps)
+
+    monkeypatch.setattr(ops.build, "on_cuda", lambda name, *ts: True)
+    monkeypatch.setattr(ops, "launch", fake_launch)
+    return calls
+
+
+@pytest.mark.parametrize("m, d, dtype", CASES)
+def test_autograd_function_backward_is_the_plain_versions(fake_card, m, d, dtype):
+    """On the CUDA branch with inputs that require grad, the forward is one
+    kernel launch and the backward equals autograd through ``rmsnorm_ref``
+    (exactly: the same plain version recomputed); without grad the kernel is
+    launched directly and the result has no graph."""
+    rng = np.random.default_rng(m + d)
+    tdt = getattr(torch, dtype)
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(tdt)
+    s = torch.from_numpy(0.1 * rng.standard_normal(d).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(tdt)
+    for need in ((True, True), (False, True), (True, False)):
+        ins = [t.clone().requires_grad_(n) for t, n in zip((x, s), need)]
+        out = ops.apply(*ins, 1e-6)
+        assert type(out.grad_fn).__name__ == "_RmsNormFnBackward"
+        out.backward(g)
+        plain = [t.clone().requires_grad_(n) for t, n in zip((x, s), need)]
+        ref.rmsnorm_ref(*plain, 1e-6).backward(g)
+        for a, b, n in zip(ins, plain, need):
+            assert (a.grad is None) == (not n)
+            if n:
+                assert torch.equal(a.grad, b.grad)
+    assert len(fake_card) == 3
+    out = layers.rms_norm(x, s)          # nothing requires grad
+    assert out.grad_fn is None and len(fake_card) == 4
