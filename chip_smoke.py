@@ -36,19 +36,23 @@ non-zero exit and no result line):
                autograd
                Functions against autograd through the plain versions;
                parity-lm-kernels: rmsnorm at the JAX tests' cases, the LM
-               path's rows, every config width, M = 0, D = 2566 and an
-               unaligned base; flash_attention at the JAX tests' nine cases
-               and the LM shapes (danube at S = 1024 and 4608, window 4096;
-               gemma2-27b's D = 144 with softcap 50; gemma3-4b's D = 320; a
-               cross shape Sq = 128, Skv = 1500; B·H = 2049·32, past a grid
-               dimension's 65535), f32 and bf16, and strided
+               path's rows, every config width (MLA's 512 and 1536, Mamba's
+               5120 and 7168 among them), the train step's [4096, 2560],
+               M = 0, D = 2566 and an unaligned base; flash_attention at the
+               JAX tests' nine cases and the LM shapes (danube at S = 1024
+               and 4608, window 4096, and the train step's 2 x 2048;
+               gemma2-27b's D = 144 with softcap 50; gemma3-4b's D = 320,
+               gemma3-12b's 240, zamba2's 112; cross shapes Sq = 128 and
+               448 over Skv = 1500 and 1024 over 1600; B·H = 2049·32, past
+               a grid dimension's 65535), f32 and bf16, and strided
                and misaligned bf16 views, each gated on the instance the
                routing rule names (bf16 with D ≤ 256, D % 8 = 0, aligned:
                the tensor cores); and the gradients of a next-token
                cross-entropy of model.forward (danube at 2 layers, d_model
                256, f32) on the card against the CPU, every parameter
                within 1e-3 of its gradient's scale (the two kernels'
-               autograd Functions: kernel forward, plain backward).
+               autograd Functions: kernel forward, plain backward; under
+               danube's remat "dots" the backward re-launches both).
   3. main      ring(10⁶, k=3), 8 walkers, p_halt 0.2, l_max 5 (K = 48),
                T = 1024 observations, 16 samples: posterior_mean,
                pathwise_samples on the monolithic trace and
@@ -100,7 +104,32 @@ non-zero exit and no result line):
                layers, f32, window 512: prefill(640) + 16 decode steps
                against forward on the card, and the card against the CPU,
                each within 1e-3.
- 10. parity-baselines
+ 10. train     h2o-danube-1.8b at its published width and depth (24 layers,
+               1.75 B params, bf16 activations, remat "dots", float32 params,
+               mu and nu updated in place): AdamW(1e-3, wd 0.01, clip 1) on
+               2 x 2048 tokens of TokenStream(seed 0), 2 warm-up and 8 timed
+               steps on one batch, then 3 from the stream.  Gates: finite
+               losses, the overfit loss falls, every step launches
+               flash_attention 48 times (24 forward, 24 recomputed under
+               remat), all on the tensor cores, and rmsnorm 97 times.  Step
+               ms, tokens/s, peak memory, busy share, the top ops and the
+               GEMM work's share of the bf16 peak.  Then at 2 layers: remat
+               none/dots/full bit-equal (loss and every gradient), launches
+               re-counted; microbatches 2 vs 1 in float32 (mu, nu 1e-5,
+               params 1e-5 where Adam's step is determined); one step card
+               vs CPU in float32, window 512 (1e-4); train_loop stopped
+               after its step-3 checkpoint and resumed to 6 against 6
+               straight steps (1e-6).
+ 11. lm-archs  the nine other configs at their published widths, each
+               stage's repeat cut to 1 (whisper-base whole): prefill 4 x
+               1024 tokens (whisper 448, with 1500 encoder frames; llama-
+               vision with 1600 patch embeddings) and 8 decode steps, bf16,
+               flash and rmsnorm launches gated per call against the count
+               of attention-kind and encoder layers and norms; decode vs
+               forward in float32 (1e-3; deepseek naive and absorbed); one
+               train step at 1 x 512 tokens for all but deepseek-v2-236b
+               (its one-layer train state is ≈72 GB).
+ 12. parity-baselines
                the shapes the baselines give the kernels: ell_spmv at R = 1024
                over [1024, 48] rows of the 10⁶-node trace (u 4 GiB) and at
                R = 4096 over [1024, 48] rows of a 65536-node ring (u 1 GiB),
@@ -110,7 +139,7 @@ non-zero exit and no result line):
                (grid 64x64, 100 walkers, l_max 10, K = 1100), bit-equal to
                the plain version for every scheme; each timed for the result
                line.
- 11. baselines the paper's comparison where O(N³) runs: grid2d(64, 64),
+ 13. baselines the paper's comparison where O(N³) runs: grid2d(64, 64),
                T = 1024, noise 0.1, the truth drawn through the port's
                eigendecomposition.  The exact GP (150-step exact-diffusion fit
                + Cholesky posterior; no kernel of the port) against the GRF-GP
@@ -121,22 +150,22 @@ non-zero exit and no result line):
                ell_spmv and ell_spmv_t launched; the fused K̂ at the fit's CG
                shape [1024, 1100], R = 9; the exact path card vs CPU within
                1e-4 at N = 400; the wind twin at 2000 nodes.
- 12. svgp      bench_classification.py's full mode: SBM(2500, 7), 80/20
+ 14. svgp      bench_classification.py's full mode: SBM(2500, 7), 80/20
                split, K = 3000, 150 inducing nodes, 600 steps: accuracy
                (gate: twice chance), ms a step and its busy share, beside the
                exact diffusion and Matérn classifiers; walk_sampler launched.
- 13. jlt       the JLT + Woodbury solver: the JAX test's problem (grid2d(7, 7),
+ 15. jlt       the JLT + Woodbury solver: the JAX test's problem (grid2d(7, 7),
                m = 4096; gate: correlation with CG > 0.95), then the
                posterior cell's T = 1024 rows at N = 10⁶, m = 1024 (G 4 GiB):
                correlation, wall, peak; ell_spmv launched at R = 1024.
- 14. obs       the main posterior calls, one fit chunk, one serving wave and
+ 16. obs       the main posterior calls, one fit chunk, one serving wave and
                one BO round under obs.recording(chiprun_out/obs.jsonl): the
                record validates, every expected span is there,
                walks.rows_sampled equals the rows of the walk kernel's
                launches, and the solver.cg histogram counts every solve; the
                summary table; then the same calls with obs disabled record
                and write nothing.
- 15. resilience
+ 17. resilience
                at the serving width (ring(10⁶), K = 144, capacity 128): a
                ResilientServer (journal, a checkpoint every 2 ops,
                forget_oldest) under nan_payload 0.01, inf_payload 0.005,
@@ -157,7 +186,7 @@ non-zero exit and no result line):
                checkpoint (finite regret).  Prints journal µs per op, save
                and restore ms, recovery ms and ms per replayed event, query
                p50/p99 with the plan and without, and each rung's ms.
- 16. fleet     bench_serving_load.py's full mode at the serving width
+ 18. fleet     bench_serving_load.py's full mode at the serving width
                (ring(10⁶), K = 144, capacity 128): its seeded stream (64
                warm observations, 96 ticks of 8 appends, forgets down to 96
                live, Poisson(4) requests of 16 nodes; batch 64, max_pending
@@ -179,7 +208,7 @@ non-zero exit and no result line):
                exits 113 at 'serving.fleet.observe' with the killed observe
                journalled, and recover() equals the journalled fold bit for
                bit on 256 nodes.
- 17. timing    each kernel at the main-path shapes with CUDA events: kernel,
+ 19. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
                (ell_spmv at the prior draw [10⁶, 48] and one chunk each of
                [65536, 48] and [65536, 144], u [10⁶, 16], and the K = 144
@@ -209,11 +238,14 @@ non-zero exit and no result line):
                host µs per call against F.rms_norm); printed as one
                {"kernels": [...]} line.
 
-The new shapes of phase 10 and khat_fused's at phase 11's CG shape join
-their kernels' `shapes` lists in that line.
+The new shapes of phase 12 and khat_fused's at phase 13's CG shape join
+their kernels' `shapes` lists in that line, and so do flash_attention and
+rmsnorm at the train step's shapes ([2, 32, 2048, 80] causal, SDPA
+is_causal beside; [4096, 2560]) with their launches a step.
 
-Each path (main, fit, serving, each BO loop, solvers, lm, baselines, svgp,
-jlt, obs, each part of resilience and of fleet) is driven with every launch
+Each path (main, fit, serving, each BO loop, solvers, lm, train, each
+call of lm-archs, baselines, svgp, jlt, obs, each part of resilience and
+of fleet) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
 runs was never launched; a kernel's `launches` in the result line is the
 sum over those runs.  walk_sampler's launches are also printed by (M, K),
@@ -393,9 +425,58 @@ ATTN_CASES = [
     ((1, 32, 16, 4608, 4608, 144), dict(window=4096, softcap=50.0)),
     ((1, 8, 4, 2048, 2048, 320), dict(window=1024)),
     ((1, 8, 8, 128, 1500, 64), dict(causal=False)),
+    # Slice 12: the train step's shape, the new configs' head dims (gemma3-
+    # 12b's 240, zamba2's shared block's 112) and the cross-attention calls
+    # of whisper-base (448 queries over 1500 frames, not a multiple of the
+    # tile) and llama-3.2-vision (1024 over 1600 patches).
+    ((2, 32, 8, 2048, 2048, 80), dict(window=4096)),
+    ((1, 16, 8, 1024, 1024, 240), dict(window=1024)),
+    ((1, 32, 32, 1024, 1024, 112), {}),
+    ((4, 8, 8, 448, 1500, 64), dict(causal=False)),
+    ((1, 32, 8, 1024, 1600, 128), dict(causal=False)),
 ]
 # The LM path's rmsnorm rows: a prefill at each prompt length, a decode step.
 NORM_SHAPES = [(4608, 2560), (1024, 2560), (4, 2560)]
+# LM training on h2o-danube-1.8b at its published width and depth (24
+# layers, bf16 activations, a float32 train state updated in place, remat
+# "dots", the config's): AdamW(1e-3, weight decay 0.01, clip 1.0), 2 x 2048
+# tokens from TokenStream(seed 0): 2 warm-up and 8 timed steps on its first
+# batch (overfit), then 3 steps from the stream.
+TRAIN = dict(arch="h2o-danube-1.8b", seed=0, batch=2, seq=2048, lr=1e-3,
+             weight_decay=0.01, clip=1.0, warm=2, timed=8, stream=3)
+# The train step's rmsnorm rows: 2 x 2048 tokens at d_model 2560.
+TRAIN_NORM = (TRAIN["batch"] * TRAIN["seq"], 2560)
+# Its checks at full width cut to 2 layers: remat none/dots/full on the
+# train batch; microbatches 2 against 1 (float32); one step card against CPU
+# (float32, window 512, 1 x 1024 tokens); train_loop stopped after its
+# step-3 checkpoint and resumed to 6 against 6 straight steps (2 x 256
+# tokens).  Tolerances, relative to each leaf's scale: the microbatch step
+# 1e-5 (float32 sums of two halves against one); card vs CPU 1e-4 (two
+# layers of float32 forward through the kernels, the same plain backward);
+# the resume 1e-6 (the JAX test's; the embedding's backward sums with
+# atomics on the card).  Adam's first step is g/(|g| + ε): an element where
+# the two runs' gradient difference could move the step by more than a
+# tenth of the tolerance (near g = 0) is held to Adam's bound of 2·lr
+# instead, and counted (adam_step_check).
+TRAIN_CHECK = dict(layers=2, window=512, cpu_batch=1, cpu_seq=1024,
+                   resume_steps=6, kill_at=3, resume_batch=2, resume_seq=256,
+                   micro_rtol=1e-5, cpu_rtol=1e-4, resume_rtol=1e-6)
+# The nine other configs at their published widths, random weights from the
+# seed, bf16; each stage's repeat cut to 1 (whisper-base, 74 M parameters,
+# runs whole): 4 prompts of 1024 tokens (whisper-base 448, its decoder's
+# context) and 8 greedy tokens; decode against forward in float32 (a
+# 16-token prompt and 8 steps, cache f32, capacity factor 8, deepseek naive
+# and absorbed) within 1e-3; a train step at 1 x 512 tokens for each config
+# whose one-repeat train state fits at 16 bytes a parameter (deepseek-v2-
+# 236b's one MLA + MoE layer and embedding are ≈4.65 B parameters, ≈74 GB:
+# it trains only in the reduced-config gpu tests).
+ARCHS = dict(names=("zamba2-7b", "llama-3.2-vision-11b", "deepseek-v2-236b",
+                    "moonshot-v1-16b-a3b", "mamba2-2.7b", "whisper-base",
+                    "gemma3-4b", "gemma3-12b", "gemma2-27b"),
+             whole=("whisper-base",), no_train=("deepseek-v2-236b",),
+             seed=0, batch=4, prompt=1024, prompts={"whisper-base": 448}, new=8,
+             check_prompt=16, check_steps=8, check_rtol=1e-3,
+             train_batch=1, train_seq=512)
 
 REPLACES = {
     "walk_sampler": "src/repro/kernels/walk_sampler/walk_sampler.py:59",
@@ -2076,7 +2157,9 @@ def check_rmsnorm_cases(dev) -> None:
 
     shapes = [(8, 64), (100, 256), (33, 128), (224, 96), (4608, 2560),
               (1024, 2560), (4, 2560), (1, 2560), (3, 5120), (5, 2048),
-              (2, 3840), (6, 4096), (7, 4608), (37, 2566), (0, 2560)]
+              (2, 3840), (6, 4096), (7, 4608), (37, 2566), (0, 2560),
+              (4096, 2560), (9, 512), (11, 1536), (64, 5120), (64, 7168),
+              (13, 3584), (1024, 1536)]
     gen = torch.Generator(device=dev).manual_seed(21)
     worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
     for m, d in shapes:
@@ -2106,7 +2189,8 @@ def check_rmsnorm_cases(dev) -> None:
     err = bf16_err(ops.apply(xu, su), ref.rmsnorm_ref(xu, su))[1]
     expect(err <= BF16_ULPS, f"rmsnorm unaligned base: {err:.2f} ulps")
     print(f"[parity] rmsnorm matches rmsnorm_ref at {len(shapes)} shapes (M = 0 "
-          f"to 4608, every config width, D = 2566), a 3-D input and an "
+          f"to 4608, every config width, MLA's q_norm 1536 and kv_norm 512, "
+          f"Mamba's out_norm 5120 and 7168, D = 2566), a 3-D input and an "
           f"unaligned base: f32 rel {worst[torch.float32]:.2e} (limit "
           f"{NORM_RTOL:g}), bf16 {worst[torch.bfloat16]:.2f} ulps of scale "
           f"(limit {BF16_ULPS})")
@@ -2153,8 +2237,11 @@ def check_lm_grads(dev) -> None:
     card_loss, card = grads(params, dev)
     launched = (fops.LAUNCHES["flash_attention"] - before[0],
                 rops.LAUNCHES["rmsnorm"] - before[1])
-    expect(launched == (c["layers"], 2 * c["layers"] + 1),
-           f"lm grads: kernel launches (flash, rmsnorm) {launched}")
+    # The forward's launches, and under danube's remat "dots" the backward's
+    # recompute of each layer's body (lm_launches counts both).
+    expect(launched == lm_launches(cfg, "train"),
+           f"lm grads: kernel launches (flash, rmsnorm) {launched}, expected "
+           f"{lm_launches(cfg, 'train')}")
     host_loss, host = grads(model.tree_map(lambda a: a.detach().cpu(), params),
                             torch.device("cpu"))
     worst = rel_err(card_loss.detach().cpu(), host_loss.detach())[1]
@@ -2357,6 +2444,559 @@ def phase_lm(dev) -> dict:
     torch.cuda.empty_cache()
     lm_check(dev)
     return out
+
+
+# --------------------------------------------------------------------------
+# Slice 12: LM training and the other layer kinds
+# --------------------------------------------------------------------------
+
+
+def lm_launches(cfg, mode: str) -> tuple[int, int]:
+    """The (flash_attention, rmsnorm) launches one call of ``mode`` makes:
+    "prefill", "decode", "forward", or "train" (a forward, plus the
+    recompute of every remat-wrapped repeat under remat dots or full: all
+    but the final norm and the encoder's).  Attention layers (attn,
+    cross_attn, shared_attn) and encoder layers launch attention in every
+    mode but decode; their norms: one for attention and one for an MLP or
+    MoE; MLA three (norm, q_norm, kv_norm) and two more in prefill (its
+    cache's latents); Mamba two (norm, out_norm)."""
+    flash = norms = 0
+    for repeat, pattern in cfg.stages:
+        for spec in pattern:
+            ffn = int(spec.has_mlp and spec.kind not in ("mamba", "shared_attn"))
+            if spec.kind in ("attn", "cross_attn"):
+                f, n = 1, 1 + ffn
+            elif spec.kind == "shared_attn":
+                f, n = 1, 2
+            elif spec.kind == "mla":
+                f, n = 0, (5 if mode == "prefill" else 3) + ffn
+            else:   # mamba
+                f, n = 0, 2
+            flash += repeat * f * (mode != "decode")
+            norms += repeat * n
+    enc = 0
+    if cfg.n_enc_layers and mode != "decode":
+        layers = cfg.n_enc_layers * cfg.enc_pattern_mult
+        flash += layers
+        norms += 2 * layers
+        enc = 1
+    if mode == "train" and cfg.remat in ("dots", "full"):
+        flash, norms = 2 * flash, 2 * norms
+    return flash, norms + 1 + enc
+
+
+def launched(c0: dict) -> dict:
+    """The launches since the counts ``c0``."""
+    c1 = counts_now()
+    return {k: c1[k] - c0[k] for k in c1 if c1[k] != c0[k]}
+
+
+def adam_step_check(label, new, ref, grads, ref_grads, lr, rtol) -> dict:
+    """Params after one Adam step against a reference's, leaf by leaf.
+    ``grads`` / ``ref_grads`` are the clipped gradients each step used.
+    Adam's first step is g/(|g| + ε), whose slope ε/(|g| + ε)² is largest
+    near g = 0: an element's measured gradient difference d moves its step
+    by at most lr·d·ε/(max(|g| − d, 0) + ε)².  Every element where that is
+    within a tenth of ``rtol`` of the leaf's scale is held to ``rtol``; the
+    rest, whose step the two runs' gradients do not determine, are held to
+    Adam's bound 2·lr (plus the weight decay's share).  Returns each leaf's
+    share of the latter, by path."""
+    import torch
+
+    eps = 1e-8
+    worst, past, total, shares = 0.0, 0, 0, {}
+    for (path, a), b, g, h in zip(paths_of(new), paths_of(ref), paths_of(ref_grads),
+                                  paths_of(grads), strict=True):
+        a, b = a.detach().cpu().double(), b[1].detach().cpu().double()
+        g, h = g[1].cpu().double(), h[1].cpu().double()
+        scale = max(float(b.abs().max()), 1e-30)
+        gap = (g - h).abs()
+        moved = lr * gap * eps / ((g.abs() - gap).clamp(min=0) + eps) ** 2
+        sure = moved <= 0.1 * rtol * scale
+        shares[path] = float((~sure).sum()) / max(b.numel(), 1)
+        diff = (a - b).abs()
+        past += int((diff > rtol * scale).sum())
+        total += b.numel()
+        rel = float((diff * sure).max()) / scale if b.numel() else 0.0
+        expect(rel <= rtol, f"{label}: {path} after the step differs by rel {rel:.2e}")
+        expect(float(diff.max()) <= 2.05 * lr, f"{label}: {path} past Adam's bound")
+        worst = max(worst, rel)
+        del a, b, g, h, gap, moved, diff, sure
+    torch.cuda.empty_cache()
+    exempt = {k: round(v, 6) for k, v in shares.items() if v}
+    print(f"[train] {label}: params after one step within rel {worst:.2e} (limit "
+          f"{rtol:g}) where the gradients determine the step; {past} of {total} "
+          f"elements past {rtol:g} of scale in all; share of each leaf whose step "
+          f"they do not determine, held to Adam's 2·lr bound: {json.dumps(exempt)}")
+    return shares
+
+
+def leaf_errs(got, want) -> tuple[float, int]:
+    """(worst rel err of ``got``'s leaves against ``want``'s, the number of
+    leaves that are bit-equal)."""
+    import torch
+
+    from repro_torch.models import model
+
+    worst, same = 0.0, 0
+    for a, b in zip(model.tree_leaves(got), model.tree_leaves(want), strict=True):
+        b = b.to(a.device)
+        worst = max(worst, rel_err(a, b)[1])
+        same += bool(torch.equal(a, b))
+    return worst, same
+
+
+def train_checks(dev, base) -> dict:
+    """TRAIN_CHECK at full width cut to its layers: remat variants, the
+    microbatch step, card against CPU, and kill and resume."""
+    import dataclasses
+    import tempfile
+
+    import torch
+
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import LayerSpec, model
+    from repro_torch.optim import AdamW
+
+    c = TRAIN_CHECK
+    cut = dataclasses.replace(base, stages=((c["layers"], base.stages[0][1]),))
+    opt = AdamW(lr=TRAIN["lr"], weight_decay=TRAIN["weight_decay"], grad_clip=TRAIN["clip"])
+    params = model.init_params(cut, seed=TRAIN["seed"] + 1, device=dev)
+    batch = train.batch_to(TokenStream(cut.vocab_size, TRAIN["batch"], TRAIN["seq"],
+                                       seed=TRAIN["seed"]).next_batch(), dev)
+    out: dict = {}
+
+    # Remat: the same loss and gradients, the kernels re-launched.
+    ref = None
+    for remat in ("none", "dots", "full"):
+        cfg = dataclasses.replace(cut, remat=remat)
+        c0 = counts_now()
+        loss, _, grads = train.loss_and_grads(params, cfg, batch)
+        sync(dev)
+        got = launched(c0)
+        want = lm_launches(cfg, "train")
+        expect((got.get("flash_attention"), got.get("rmsnorm")) == want,
+               f"train remat {remat}: launched {got}, expected (flash, rmsnorm) {want}")
+        if ref is None:
+            ref = (loss, grads)
+            print(f"[train] remat none at {c['layers']} layers: loss {float(loss):.6f}, "
+                  f"launches {json.dumps(got)}")
+            continue
+        worst, same = leaf_errs(grads, ref[1])
+        n = len(model.tree_leaves(grads))
+        loss_same = bool(torch.equal(loss, ref[0]))
+        print(f"[train] remat {remat} against none: loss "
+              f"{'bit-equal' if loss_same else f'rel {rel_err(loss, ref[0])[1]:.2e}'}, "
+              f"{same} of {n} gradient leaves bit-equal, worst rel {worst:.2e}; "
+              f"launches {json.dumps(got)}")
+        expect(loss_same and same == n,
+               f"train remat {remat}: not bit-equal to none (loss {loss_same}, "
+               f"{same}/{n} leaves, worst rel {worst:.2e})")
+        out[remat] = dict(worst=worst, same=same)
+        del grads
+    del ref
+    torch.cuda.empty_cache()
+
+    # Microbatches 2 against 1, float32, from one state.
+    cfg32 = dataclasses.replace(cut, dtype="float32")
+    fresh = lambda: train.TrainState(model.tree_map(torch.clone, params),  # noqa: E731
+                                     opt.init(params), 0)
+    one, _ = train.make_train_step(cfg32, opt, 1)(fresh(), batch)
+    two, _ = train.make_train_step(cfg32, opt, 2)(fresh(), batch)
+    worst_mu, _ = leaf_errs(two.opt_state.mu, one.opt_state.mu)
+    worst_nu, _ = leaf_errs(two.opt_state.nu, one.opt_state.nu)
+    expect(max(worst_mu, worst_nu) <= c["micro_rtol"],
+           f"train microbatches: mu rel {worst_mu:.2e}, nu rel {worst_nu:.2e}")
+    # μ after one step is (1 − b1) times the clipped gradient.
+    g_one, g_two = (model.tree_map(lambda m: m / (1 - opt.b1), st.opt_state.mu)
+                    for st in (one, two))
+    print(f"[train] microbatches 2 vs 1 (float32, {TRAIN['batch']} x {TRAIN['seq']} "
+          f"tokens): mu rel {worst_mu:.2e}, nu rel {worst_nu:.2e} (limit "
+          f"{c['micro_rtol']:g})")
+    out["micro_exempt"] = adam_step_check("microbatches 2 vs 1", two.params, one.params,
+                                          g_two, g_one, opt.lr, c["micro_rtol"])
+    del one, two, g_one, g_two, params, batch
+    torch.cuda.empty_cache()
+
+    # One step on the card against the CPU: float32, window 512.
+    cfg = dataclasses.replace(
+        cut, dtype="float32", cache_dtype="float32",
+        stages=((c["layers"], (LayerSpec(kind="attn", window=c["window"]),)),))
+    params = model.init_params(cfg, seed=TRAIN["seed"] + 2, device=dev)
+    host = TokenStream(cfg.vocab_size, c["cpu_batch"], c["cpu_seq"],
+                       seed=TRAIN["seed"] + 2).next_batch()
+    res = {}
+    for label, d in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = params if label == "card" else model.tree_map(lambda a: a.cpu(), params)
+        t0 = time.perf_counter()
+        loss, _, grads = train.loss_and_grads(p, cfg, train.batch_to(host, d))
+        new, st = opt.update(grads, opt.init(p), p)
+        sync(dev)
+        # μ after one step is (1 − b1) times the clipped gradient.
+        clipped = model.tree_map(lambda m: m / (1 - opt.b1), st.mu)
+        res[label] = (loss, grads, new, time.perf_counter() - t0, clipped)
+    loss_rel = rel_err(res["card"][0].cpu(), res["cpu"][0])[1]
+    worst, _ = leaf_errs(res["card"][1], res["cpu"][1])
+    expect(loss_rel <= c["cpu_rtol"] and worst <= c["cpu_rtol"],
+           f"train card vs CPU: loss rel {loss_rel:.2e}, gradients rel {worst:.2e}")
+    print(f"[train] one step card vs CPU ({c['layers']} layers at full width, float32, "
+          f"window {c['window']}, {c['cpu_batch']} x {c['cpu_seq']} tokens; card "
+          f"{res['card'][3]:.2f} s, CPU {res['cpu'][3]:.2f} s): loss rel {loss_rel:.2e}, "
+          f"gradients worst rel {worst:.2e} (limit {c['cpu_rtol']:g})")
+    out["cpu_exempt"] = adam_step_check("card vs CPU", res["card"][2], res["cpu"][2],
+                                        res["card"][4], res["cpu"][4], opt.lr, c["cpu_rtol"])
+    del res, params
+    torch.cuda.empty_cache()
+
+    # train_loop stopped after its step-3 checkpoint, resumed to 6.
+    kw = dict(global_batch=c["resume_batch"], seq_len=c["resume_seq"], seed=TRAIN["seed"],
+              lr=TRAIN["lr"], device=dev)
+    t0 = time.perf_counter()
+    straight, _ = train.train_loop(cut, steps=c["resume_steps"], **kw)
+    straight_s = time.perf_counter() - t0
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_train_") as d:
+        t0 = time.perf_counter()
+        first, _ = train.train_loop(cut, steps=c["kill_at"], ckpt_dir=d,
+                                    ckpt_every=c["kill_at"], **kw)
+        del first
+        torch.cuda.empty_cache()
+        resumed, hist = train.train_loop(cut, steps=c["resume_steps"], ckpt_dir=d,
+                                         ckpt_every=c["kill_at"], **kw)
+        ckpt_s = time.perf_counter() - t0
+    expect(resumed.step == c["resume_steps"], f"train resume reached {resumed.step}")
+    want = dict(paths_of(straight.params))
+    worst, same, n = 0.0, 0, 0
+    for path, leaf in paths_of(resumed.params):
+        worst = max(worst, rel_err(leaf, want[path])[1])
+        same += bool(torch.equal(leaf, want[path]))
+        n += 1
+    expect(worst <= c["resume_rtol"], f"train resume: rel {worst:.2e}")
+    print(f"[train] train_loop stopped after its step-{c['kill_at']} checkpoint and "
+          f"resumed to {c['resume_steps']} ({c['resume_batch']} x {c['resume_seq']} "
+          f"tokens, {ckpt_s:.1f} s with two checkpoints and a restore, against "
+          f"{straight_s:.1f} s straight): params worst rel {worst:.2e} (limit "
+          f"{c['resume_rtol']:g}), {same} of {n} leaves bit-equal")
+    out["resume"] = dict(worst=worst, same=same)
+    del straight, resumed
+    torch.cuda.empty_cache()
+    return out
+
+
+def paths_of(tree, pre=""):
+    """(path, leaf) of a nested dict/list of tensors."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from paths_of(v, f"{pre}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from paths_of(v, f"{pre}/{i}")
+    else:
+        yield pre, tree
+
+
+def phase_train(dev) -> dict:
+    """LM training on TRAIN's config at its published width and depth, then
+    train_checks at two layers."""
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import AdamW
+
+    c = TRAIN
+    cfg = configs.get_config(c["arch"])
+    opt = AdamW(lr=c["lr"], weight_decay=c["weight_decay"], grad_clip=c["clip"])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    state = train.init_state(cfg, c["seed"], opt, dev)
+    n_params = sum(t.numel() for t in model.tree_leaves(state.params))
+    sync(dev)
+    print(f"[train] {cfg.name}: {cfg.n_layers} layers, d_model {cfg.d_model}, "
+          f"{cfg.n_heads}/{cfg.n_kv_heads} heads of {cfg.resolved_head_dim}, d_ff "
+          f"{cfg.d_ff}, vocab {cfg.vocab_size}: {n_params / 1e9:.3f} B params; "
+          f"{cfg.dtype} activations, remat {cfg.remat!r}, float32 params/mu/nu "
+          f"({mib(12 * n_params)} MiB) updated in place; init "
+          f"{time.perf_counter() - t0:.1f} s")
+    stream = TokenStream(cfg.vocab_size, c["batch"], c["seq"], seed=c["seed"])
+    fixed = train.batch_to(stream.next_batch(), dev)
+    step = train.make_train_step(cfg, opt)
+    want_flash, want_norm = lm_launches(cfg, "train")
+    tc = flash_ops.TENSOR_CORE
+    losses, walls = [], []
+
+    def one(batch):
+        nonlocal state
+        c0 = counts_now()
+        sync(dev)
+        t = time.perf_counter()
+        state, m = step(state, batch)
+        loss = float(m["loss"])
+        sync(dev)
+        walls.append(time.perf_counter() - t)
+        got = launched(c0)
+        expect(math.isfinite(loss) and math.isfinite(float(m["grad_norm"])),
+               f"train: step {len(losses)} loss {loss}")
+        expect(got.get("flash_attention") == want_flash and got.get(tc) == want_flash
+               and got.get("rmsnorm") == want_norm,
+               f"train: a step launched {got}; expected {want_flash} flash (all on "
+               f"the tensor cores) and {want_norm} rmsnorm")
+        losses.append(loss)
+        return got
+
+    reset_counts()
+    t0 = time.perf_counter()
+    for _ in range(c["warm"] + c["timed"]):
+        per_step = one(fixed)
+    for _ in range(c["stream"]):
+        one(train.batch_to(stream.next_batch(), dev))
+    run_s = time.perf_counter() - t0
+    counts = counts_now()
+    peak = torch.cuda.max_memory_allocated(dev)
+    gate_counts("train", counts, ("flash_attention", tc, "rmsnorm"))
+    n_fit = c["warm"] + c["timed"]
+    expect(losses[n_fit - 1] < losses[0], f"train: the overfit loss did not fall {losses}")
+    tokens = c["batch"] * c["seq"]
+    timed = walls[c["warm"]:n_fit]
+    step_s = float(np.median(timed))
+    print(f"[train] {len(losses)} steps in {run_s:.1f} s; losses "
+          + ", ".join(f"{x:.4f}" for x in losses)
+          + f" (overfit {losses[0]:.4f} -> {losses[n_fit - 1]:.4f}, then the stream)")
+    print(f"[train] step ms: first {walls[0] * 1e3:.1f}, warm median "
+          f"{step_s * 1e3:.1f} (of {c['timed']}: min {min(timed) * 1e3:.1f}, max "
+          f"{max(timed) * 1e3:.1f}); {tokens / step_s:.0f} tokens/s at "
+          f"{c['batch']} x {c['seq']}; max_memory_allocated {peak / 2**20:.0f} MiB "
+          f"(in-place AdamW update); launches per step {json.dumps(per_step)}")
+    busy = profile_busy(f"train step ({c['batch']} x {c['seq']} tokens)",
+                        lambda: one(fixed), dev, step_s)
+    top = top_ops("train step", lambda: one(fixed), dev)
+    gemm = 6 * n_params * tokens
+    # Causal attention: q·k and p·v over S(S+1)/2 pairs per head, 2 FLOPs a
+    # multiply-add, forward once, recomputed once under remat, and the
+    # backward's four products.
+    attn = 2 * 2 * cfg.resolved_head_dim * cfg.n_heads * c["batch"] * (
+        c["seq"] * (c["seq"] + 1) // 2) * cfg.n_layers * (1 + 1 + 2)
+    print(f"[timing] train step: model FLOPs 6·N·tokens = {gemm:.3e} (bf16 GEMMs) + "
+          f"{attn:.3e} attention (forward, recompute, backward); "
+          f"{gemm / step_s / 1e12:.1f} TFLOP/s of GEMM work = "
+          f"{100 * gemm / step_s / BF16_TC_FLOP_PER_S:.1f}% of the bf16 dense peak "
+          f"({BF16_TC_FLOP_PER_S / 1e12:.0f} TFLOP/s)")
+    del state, fixed
+    torch.cuda.empty_cache()
+    checks = train_checks(dev, cfg)
+    return dict(counts=counts, per_step=per_step, losses=losses, walls=walls,
+                step_s=step_s, tokens_s=tokens / step_s, peak=peak, busy=busy,
+                top=top, checks=checks, n_params=n_params)
+
+
+def top_ops(label: str, fn, dev, n: int = 8) -> list:
+    """Profile one call of ``fn`` and print its PyTorch ops by the device
+    time of the kernels each launched itself (self device time), largest
+    first, with their share of the call's device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    sync(dev)
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            fn()
+            sync(dev)
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None)
+        if t is None:
+            t = e.self_cuda_time_total
+        if e.device_type == DeviceType.CPU and t > 0:
+            rows.append((e.key, t / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    total = sum(r[1] for r in rows)
+    if not total:
+        print(f"[timing] {label}: the profiler saw no device time (not measured)")
+        return []
+    print(f"[timing] {label}: top ops by self device time ({total:.1f} ms in all): "
+          + "; ".join(f"{k} {t:.1f} ms ({100 * t / total:.0f}%, {c} calls)"
+                      for k, t, c in rows[:n]))
+    return rows[:n]
+
+
+def arch_inputs(cfg, batch: int, seq: int, dev, seed: int) -> dict:
+    """Random token ids [batch, seq] and the config's stub inputs (float32
+    frame or patch embeddings) on the card."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (batch, seq), generator=gen,
+                                   device=dev)}
+    if cfg.n_enc_layers:
+        out["enc_input"] = torch.randn((batch, cfg.enc_seq, cfg.d_model),
+                                       generator=gen, device=dev)
+    if cfg.n_vis_tokens:
+        out["vis_input"] = torch.randn((batch, cfg.n_vis_tokens, cfg.d_model),
+                                       generator=gen, device=dev)
+    return out
+
+
+def arch_check(dev, cfg, params, label) -> float:
+    """Decode against forward in float32 at ARCHS' check sizes; returns the
+    worst rel err (deepseek: naive and absorbed)."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch.models import model
+
+    a = ARCHS
+    cfg32 = dataclasses.replace(cfg, dtype="float32", cache_dtype="float32",
+                                capacity_factor=8.0)
+    n = a["check_prompt"] + a["check_steps"]
+    ins = arch_inputs(cfg32, 1, n, dev, a["seed"] + 1)
+    tok = ins.pop("tokens")
+    full, _ = model.forward(params, cfg32, tok, **ins)
+    worst = 0.0
+    forms = [cfg32] + ([dataclasses.replace(cfg32, mla_absorb=True)]
+                       if cfg.kv_lora_rank else [])
+    for form in forms:
+        first, cache = model.prefill(params, form, tok[:, :a["check_prompt"]],
+                                     max_len=n, **ins)
+        outs = [first]
+        for i in range(a["check_prompt"], n):
+            lg, cache = model.decode_step(params, cache, form, tok[:, i:i + 1], i)
+            outs.append(lg[:, 0])
+        err, rel = rel_err(torch.stack(outs, 1), full[:, a["check_prompt"] - 1:])
+        expect(rel <= a["check_rtol"], f"{label}: decode vs forward rel {rel:.2e}")
+        print(f"[lm-archs] {label}: float32 prefill({a['check_prompt']}) + "
+              f"{a['check_steps']} decode steps vs forward"
+              f"{' (mla_absorb)' if form.mla_absorb else ''}: max abs {err:.3e}, "
+              f"rel {rel:.2e} (limit {a['check_rtol']:g})")
+        worst = max(worst, rel)
+    return worst
+
+
+def arch_run(dev, arch: str, total: dict) -> dict:
+    """One config of ARCHS: prefill, decode, the f32 check and a train step."""
+    import dataclasses
+
+    import torch
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import AdamW
+
+    a = ARCHS
+    base = configs.get_config(arch)
+    cfg = base if arch in a["whole"] else dataclasses.replace(
+        base, stages=tuple((1, p) for _, p in base.stages))
+    cut = ("none (runs whole)" if cfg is base else
+           " + ".join(f"{r} -> 1 x {len(p)}" for r, p in base.stages))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = model.init_params(cfg, seed=a["seed"], device=dev)
+    n_params = sum(t.numel() for t in model.tree_leaves(params))
+    kinds = sorted({s.kind for _, p in cfg.stages for s in p}
+                   | ({"encoder"} if cfg.n_enc_layers else set())
+                   | ({"moe"} if cfg.n_experts else set()))
+    print(f"[lm-archs] {arch}: d_model {cfg.d_model}, {cfg.n_heads}/{cfg.n_kv_heads} "
+          f"heads of {cfg.resolved_head_dim}, vocab {cfg.vocab_size}; depth cut: "
+          f"{cut} ({cfg.n_layers} of {base.n_layers} layers"
+          f"{f', encoder {cfg.n_enc_layers} layers' if cfg.n_enc_layers else ''}); "
+          f"{n_params / 1e9:.3f} B params; kinds {', '.join(kinds)}")
+
+    def part(label, fn, want):
+        reset_counts()
+        sync(dev)
+        t0 = time.perf_counter()
+        res = fn()
+        sync(dev)
+        wall = time.perf_counter() - t0
+        counts = counts_now()
+        for k, v in counts.items():
+            total[k] = total.get(k, 0) + v
+        got = (counts["flash_attention"], counts["rmsnorm"])
+        expect(got == want, f"{arch} {label}: launched (flash, rmsnorm) {got}, "
+               f"expected {want}")
+        return res, wall, {k: v for k, v in counts.items() if v}
+
+    s = a["prompts"].get(arch, a["prompt"])
+    ins = arch_inputs(cfg, a["batch"], s, dev, a["seed"])
+    tok = ins.pop("tokens")
+    max_len = s + a["new"]
+    fill = lambda: model.prefill(params, cfg, tok, max_len=max_len, **ins)  # noqa: E731
+    (logits, cache), first_s, fill_counts = part("prefill", fill,
+                                                 lm_launches(cfg, "prefill"))
+    expect(bool(torch.isfinite(logits).all()), f"{arch}: non-finite prefill logits")
+    del cache
+    (logits, cache), warm_s, _ = part("prefill", fill, lm_launches(cfg, "prefill"))
+    steps = []
+    want = lm_launches(cfg, "decode")
+    nxt = logits.argmax(-1)[:, None]
+    for i in range(a["new"]):
+        (lg, cache), wall, step_counts = part(
+            "decode", lambda: model.decode_step(params, cache, cfg, nxt, s + i), want)
+        expect(bool(torch.isfinite(lg).all()), f"{arch}: non-finite decode logits")
+        nxt = lg[:, 0].argmax(-1)[:, None]
+        steps.append(wall)
+    del cache, logits, lg
+    peak = torch.cuda.max_memory_allocated(dev)
+    step = float(np.median(steps))
+    print(f"[lm-archs] {arch}: prefill {a['batch']} x {s} tokens first "
+          f"{first_s * 1e3:.1f} ms, warm {warm_s * 1e3:.1f} ms (launches "
+          f"{json.dumps(fill_counts)}); decode {a['new']} steps at batch "
+          f"{a['batch']}: median {step * 1e3:.2f} ms/step (launches "
+          f"{json.dumps(step_counts)}); peak {peak / 2**20:.0f} MiB")
+    out = dict(params=n_params, prefill_first=first_s, prefill_warm=warm_s,
+               decode=step, peak=peak, counts=fill_counts)
+    out["check"] = arch_check(dev, cfg, params, arch)
+    if arch in a["no_train"]:
+        print(f"[lm-archs] {arch}: no train step on one card: its one-repeat "
+              f"train state is {n_params / 1e9:.2f} B params x 16 bytes = "
+              f"{16 * n_params / 1e9:.0f} GB (the reduced config trains in the gpu "
+              f"tests)")
+        return out
+    opt = AdamW(lr=1e-3, weight_decay=0.01, grad_clip=1.0)
+    state = train.TrainState(params, opt.init(params), 0)
+    del params
+    batch = train.batch_to(TokenStream(
+        cfg.vocab_size, a["train_batch"], a["train_seq"], seed=a["seed"],
+        enc_seq=cfg.enc_seq, n_vis_tokens=cfg.n_vis_tokens,
+        d_model=cfg.d_model).next_batch(), dev)
+    step_fn = train.make_train_step(cfg, opt)
+    torch.cuda.reset_peak_memory_stats(dev)
+    (state, m), train_s, train_counts = part(
+        "train step", lambda: step_fn(state, batch), lm_launches(cfg, "train"))
+    loss = float(m["loss"])
+    expect(math.isfinite(loss) and math.isfinite(float(m["grad_norm"])),
+           f"{arch}: train step loss {loss}, grad norm {float(m['grad_norm'])}")
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"[lm-archs] {arch}: one train step ({a['train_batch']} x {a['train_seq']} "
+          f"tokens, remat {cfg.remat!r}, in-place AdamW) {train_s * 1e3:.1f} ms (the "
+          f"first), loss {loss:.4f}, grad norm {float(m['grad_norm']):.3e}; peak "
+          f"{peak / 2**20:.0f} MiB; launches {json.dumps(train_counts)}")
+    out.update(train_s=train_s, train_peak=peak, loss=loss)
+    del state, batch
+    return out
+
+
+def phase_lm_archs(dev) -> dict:
+    """ARCHS' nine configs, each with launch counts set to 0 before every
+    call and gated after it."""
+    import torch
+
+    total: dict = {}
+    out = {}
+    for arch in ARCHS["names"]:
+        t0 = time.perf_counter()
+        out[arch] = arch_run(dev, arch, total)
+        torch.cuda.empty_cache()
+        print(f"[lm-archs] {arch} done in {time.perf_counter() - t0:.1f} s")
+    gate_counts("lm-archs", total, ("flash_attention", "rmsnorm"))
+    return dict(counts=total, archs=out)
 
 
 # --------------------------------------------------------------------------
@@ -3935,13 +4575,15 @@ def phase_timing(dev, results: dict) -> list[dict]:
     n, s, t = MAIN["n_nodes"], MAIN["n_samples"], MAIN["n_train"]
     seed = main["out"]["seed"]
     # Launches of each kernel summed over the paths' runs (main, fit,
-    # serving, the two BO loops, solvers, lm, baselines, svgp, jlt, obs and
-    # the parts of resilience and fleet), each counted from 0.
+    # serving, the two BO loops, solvers, lm, train, lm-archs, baselines,
+    # svgp, jlt, obs and the parts of resilience and fleet), each counted
+    # from 0.
     path_counts = [main["counts"], results["fit"]["counts"],
                    results["serving"]["counts"],
                    *(results["bo"][e]["counts"] for e in ("incremental",
                                                           "refit-chunked")),
                    results["solvers"]["counts"], results["lm"]["counts"],
+                   results["train"]["counts"], results["lm-archs"]["counts"],
                    *(results[p]["counts"] for p in ("baselines", "svgp", "jlt",
                                                      "obs", "resilience", "fleet"))]
     counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
@@ -4097,8 +4739,9 @@ def phase_timing(dev, results: dict) -> list[dict]:
     khat_row = next(x for x in rows if x["name"] == "khat_fused")
     khat_row["shapes"] = khat_shapes + [solvers_cg,
                                         results["baselines"]["khat_shape"]]
-    rows.append(timing_flash(dev, counts["flash_attention"]))
-    rows.append(timing_rmsnorm(dev, counts["rmsnorm"]))
+    per_step = results["train"]["per_step"]
+    rows.append(timing_flash(dev, counts["flash_attention"], per_step["flash_attention"]))
+    rows.append(timing_rmsnorm(dev, counts["rmsnorm"], per_step["rmsnorm"]))
     return rows
 
 
@@ -4455,22 +5098,27 @@ def window_pairs(s: int, w: int) -> int:
     return w * (w + 1) // 2 + (s - w) * w
 
 
-def timing_flash(dev, launches: int) -> dict:
-    """flash_attention at the LM path's prefill shapes (danube, bf16,
-    causal, window 4096): each instance apart (device time of graph
-    replays), the wrapper's eager loop, mha_ref, SDPA with a boolean mask
-    and, where the window is wider than the prompt (the same function), SDPA
-    with is_causal."""
+def timing_flash(dev, launches: int, per_step: int) -> dict:
+    """flash_attention at the LM path's shapes (danube, bf16, causal,
+    window 4096): the prefills at batch 1 and the train step's 2 x 2048
+    (``per_step`` launches a step): each instance apart (device time of
+    graph replays), the wrapper's eager loop, mha_ref, SDPA with a boolean
+    mask and, where the window is wider than the prompt (the same function),
+    SDPA with is_causal."""
     import torch
     import torch.nn.functional as F
 
+    from repro_torch import configs
     from repro_torch.kernels.flash_attention import ops, ref
 
-    _, h, hkv, _, _, d = ATTN_CASES[-4][0]
-    w = ATTN_CASES[-4][1]["window"]
+    cfg = configs.get_config(LM["arch"])
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.resolved_head_dim
+    w = cfg.stages[0][1][0].window
     shapes = []
-    for i, s in enumerate(sorted({n for _, n in LM["waves"]})):
-        q, k, v = attn_inputs(dev, (1, h, hkv, s, s, d), torch.bfloat16, 300 + i)
+    cases = [(1, n, "prefill") for n in sorted({n for _, n in LM["waves"]})]
+    cases.append((TRAIN["batch"], TRAIN["seq"], "train"))
+    for i, (bsz, s, kind) in enumerate(cases):
+        q, k, v = attn_inputs(dev, (bsz, h, hkv, s, s, d), torch.bfloat16, 300 + i)
         kw = dict(causal=True, window=w)
         want = ref.mha_ref(q, k, v, **kw)
         errs = bf16_err(ops.flash_attention(q, k, v, **kw), want)
@@ -4496,13 +5144,14 @@ def timing_flash(dev, launches: int) -> dict:
         pairs = window_pairs(s, w)
         # q, k, v read once and o written once (bf16); a multiply-add for
         # q·k and one for p·v per head dim per open pair and query head.
-        nbytes = (2 * h * s * d + 2 * hkv * s * d) * 2
-        flops = 4 * d * h * pairs
+        nbytes = bsz * (2 * h * s * d + 2 * hkv * s * d) * 2
+        flops = bsz * 4 * d * h * pairs
         b_tc = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
         b_f32 = bound(nbytes, flops)
         causal_txt = ("n/a (the window is narrower than the prompt)"
                       if lib_causal is None else f"{lib_causal:.4f} ms")
-        print(f"[timing] flash_attention [1,{h},{s},{d}] / [1,{hkv},{s},{d}] bf16, "
+        print(f"[timing] flash_attention ({kind}) [{bsz},{h},{s},{d}] / "
+              f"[{bsz},{hkv},{s},{d}] bf16, "
               f"causal, window {w} ({pairs} open pairs per head, "
               f"{flops / 1e9:.1f} GFLOP, {nbytes / 1e6:.1f} MB): tensor-core "
               f"instance {ms:.4f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
@@ -4514,14 +5163,20 @@ def timing_flash(dev, launches: int) -> dict:
               f"{b_f32[0]:.4f} ms ({b_f32[1]}, f32 CUDA cores); max_abs_err "
               f"{errs[0]:.3e} ({errs[1]:.2f} bf16 ulps of scale; CUDA-core "
               f"{cc_err[1]:.2f})")
-        shapes.append(dict(shape=[1, h, hkv, s, d], ms=ms, cuda_core_ms=cc_ms,
+        if kind == "train":
+            print(f"[timing] flash_attention (train) launches {per_step} times a "
+                  f"train step (24 forward, 24 recomputed under remat): "
+                  f"{per_step * ms:.3f} ms a step at the graph-replay time")
+        shapes.append(dict(shape=[bsz, h, hkv, s, d], path=kind, ms=ms,
+                           per_step=per_step if kind == "train" else None,
+                           cuda_core_ms=cc_ms,
                            eager_ms=eager_ms, plain_ms=pms, library_ms=lib,
                            library_causal_ms=lib_causal, bound_ms=b_tc[0],
                            bound_by=b_tc[1], bound_f32_ms=b_f32[0],
                            max_abs_err=errs[0]))
         del q, k, v, mask
         torch.cuda.empty_cache()
-    head = shapes[-1]   # the 4608-token prefill, past the window
+    head = shapes[1]    # the 4608-token prefill, past the window
     return dict(name="flash_attention", route="cuda",
                 source="src/repro_torch/kernels/csrc/flash_attention.cu",
                 replaces=REPLACES["flash_attention"], launches=launches,
@@ -4545,10 +5200,11 @@ def host_us(fn, calls: int = 1000) -> float:
     return wall / calls * 1e6
 
 
-def timing_rmsnorm(dev, launches: int) -> dict:
-    """rmsnorm at the LM path's rows (bf16 x, f32 scale), against
-    rmsnorm_ref and torch.nn.functional.rms_norm with weight 1 + scale:
-    device time of graph replays, the eager loop, and host time per call."""
+def timing_rmsnorm(dev, launches: int, per_step: int) -> dict:
+    """rmsnorm at the LM path's rows (bf16 x, f32 scale; the train step's
+    [4096, 2560] last, ``per_step`` launches a step), against rmsnorm_ref
+    and torch.nn.functional.rms_norm with weight 1 + scale: device time of
+    graph replays, the eager loop, and host time per call."""
     import torch
     import torch.nn.functional as F
 
@@ -4556,7 +5212,7 @@ def timing_rmsnorm(dev, launches: int) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(31)
     shapes = []
-    for m, d in NORM_SHAPES:
+    for m, d in NORM_SHAPES + [TRAIN_NORM]:
         x = torch.randn((m, d), generator=gen, device=dev).to(torch.bfloat16)
         s = 0.1 * torch.randn((d,), generator=gen, device=dev)
         errs = bf16_err(ops.apply(x, s), ref.rmsnorm_ref(x, s))
@@ -4581,7 +5237,11 @@ def timing_rmsnorm(dev, launches: int) -> dict:
         print(f"[timing] rmsnorm [{m},{d}] host wall per call over 1000 "
               f"unsynchronised calls: wrapper {host:.1f} us, F.rms_norm "
               f"{lib_host:.1f} us ({host / lib_host:.2f}x)")
+        if (m, d) == TRAIN_NORM:
+            print(f"[timing] rmsnorm (train) launches {per_step} times a train "
+                  f"step: {per_step * ms:.3f} ms a step at the graph-replay time")
         shapes.append(dict(shape=[m, d], ms=ms, eager_ms=eager_ms, plain_ms=pms,
+                           path="train" if (m, d) == TRAIN_NORM else "serve",
                            library_ms=lib, library_eager_ms=lib_eager,
                            host_us=host, library_host_us=lib_host,
                            bound_ms=b[0], bound_by=b[1], max_abs_err=errs[0]))
@@ -4633,6 +5293,8 @@ def main() -> int:
         ("bo", lambda: phase_bo(dev)),
         ("solvers", lambda: phase_solvers(dev)),
         ("lm", lambda: phase_lm(dev)),
+        ("train", lambda: phase_train(dev)),
+        ("lm-archs", lambda: phase_lm_archs(dev)),
         ("parity-baselines", lambda: check_baseline_kernels(dev)),
         ("baselines", lambda: phase_baselines(dev)),
         ("svgp", lambda: phase_svgp(dev)),

@@ -39,9 +39,16 @@ def _node(tree: Any):
     """(keys, children, rebuild) of a tree node, children in JAX's order
     (dict keys sorted), or None for a leaf."""
     if isinstance(tree, dict):
+        # Keys in JAX's (sorted) order; a rebuilt dict keeps the example's
+        # own order, so that a restored tree's leaves come in the order of
+        # the tree it replaces (the global norm sums them in that order).
         keys = sorted(tree)
-        return ([str(k) for k in keys], [tree[k] for k in keys],
-                lambda kids: dict(zip(keys, kids)))
+
+        def rebuild(kids):
+            by_key = dict(zip(keys, kids))
+            return {k: by_key[k] for k in tree}
+
+        return [str(k) for k in keys], [tree[k] for k in keys], rebuild
     if isinstance(tree, WalkTrace):
         return (["0", "1", "2"], [tree.cols, tree.loads, tree.lens],
                 lambda kids: WalkTrace(*kids))

@@ -3,8 +3,8 @@
 Takes the JAX package's objects as numpy arrays (``np.asarray`` of a jax
 array works without importing JAX here) and builds the port's, on a given
 device (default: the CUDA card).  The tests use it to feed both packages the
-same graph, walk trace and hyperparameters, and the LM scaffold's parameters
-and decode caches.
+same graph, walk trace and hyperparameters, and the LM scaffold's parameters,
+decode caches and train states.
 """
 from __future__ import annotations
 
@@ -86,3 +86,20 @@ def cache_from_numpy(tree, device=None) -> dict:
     continue a decode the JAX package started."""
     dev = _device.resolve(device)
     return _tree(tree, lambda a: _leaf(a, None, dev))
+
+
+def train_state_from_numpy(state, device=None):
+    """A JAX ``launch/train.py::TrainState`` (its leaves as numpy arrays,
+    e.g. ``jax.tree.map(np.asarray, state)``) as the port's
+    :class:`~repro_torch.launch.train.TrainState`: float32 params, μ and ν
+    in the same layout, the step counts as Python ints."""
+    from .launch.train import TrainState
+    from .optim.adamw import AdamState
+
+    opt = state.opt_state
+    return TrainState(
+        params=model_params_from_numpy(state.params, device),
+        opt_state=AdamState(step=int(np.asarray(opt.step)),
+                            mu=model_params_from_numpy(opt.mu, device),
+                            nu=model_params_from_numpy(opt.nu, device)),
+        step=int(np.asarray(state.step)))

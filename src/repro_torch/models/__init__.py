@@ -1,3 +1,4 @@
-from . import attention, config, layers, model  # noqa: F401
+from . import attention, config, layers, mla, model, moe, ssm  # noqa: F401
 from .config import SHAPES, LayerSpec, ModelConfig  # noqa: F401
-from .model import decode_step, forward, init_cache, init_params, prefill  # noqa: F401
+from .model import (  # noqa: F401
+    decode_step, forward, init_cache, init_params, loss_fn, prefill)

@@ -1,5 +1,5 @@
-"""GQA attention with sliding window, softcap and KV caches (port of
-``repro/models/attention.py``).
+"""GQA attention with sliding window, softcap, cross-attention and KV caches
+(port of ``repro/models/attention.py``).
 
 Prefill and full-sequence attention go through
 ``kernels/flash_attention/ops.attention``: on the card that is always the
@@ -14,9 +14,13 @@ Sliding-window layers keep *ring-buffer* KV caches of size ``window``: slot
 token's K/V into the cache in place (the caller owns the cache; the JAX
 version returns a new one) and returns the same tensors.
 
-Not ported yet, and raising NotImplementedError: cross-attention (the
-encoder and vision stubs) and ``cfg.sp_attn`` (activation sharding needs
-``launch/sharding.py``), both ROADMAP Queue 1 #9."""
+Cross-attention (``kind="cross_attn"``) takes K and V from ``enc_out`` (the
+encoder's output or the vision stub's patch embeddings), without RoPE and
+without a causal mask; its cache holds those K/V (``enc_seq`` or
+``n_vis_tokens`` long) and decode reads it as it is.
+
+Not ported yet, and raising NotImplementedError: ``cfg.sp_attn``
+(activation sharding needs ``launch/sharding.py``, ROADMAP Queue 1 #9c)."""
 from __future__ import annotations
 
 import math
@@ -27,12 +31,11 @@ from ..kernels.flash_attention import ops as flash_ops
 from .config import LayerSpec, ModelConfig
 from .layers import KeyGen, dense_init, rms_norm, rope
 
-NOT_PORTED = "is not ported yet (ROADMAP Queue 1 #9: the rest of the LM scaffold)"
+NOT_PORTED = ("is not ported yet (ROADMAP Queue 1 #9c: sharding specs and "
+              "cost accounting)")
 
 
-def _supported(cfg: ModelConfig, spec: LayerSpec) -> None:
-    if spec.kind == "cross_attn":
-        raise NotImplementedError(f"cross-attention {NOT_PORTED}")
+def _supported(cfg: ModelConfig) -> None:
     if cfg.sp_attn:
         raise NotImplementedError(
             f"sp_attn (activation sharding over launch/sharding.py) {NOT_PORTED}")
@@ -63,11 +66,13 @@ def _out_proj(o: torch.Tensor, wo: torch.Tensor, dtype) -> torch.Tensor:
     return o.transpose(1, 2).reshape(b, s, h * hd) @ wo.to(dtype).reshape(h * hd, -1)
 
 
-def _project_qkv(p, xn, cfg, positions=None):
-    """Returns q [B,H,S,hd], k/v [B,Hkv,S,hd] (roped when positions given)."""
+def _project_qkv(p, xn, cfg, positions=None, kv_source=None):
+    """Returns q [B,H,S,hd], k/v [B,Hkv,Skv,hd] (roped when positions given;
+    K/V from ``kv_source`` when given)."""
+    src = xn if kv_source is None else kv_source.to(xn.dtype)
     q = _proj(xn, p["wq"])
-    k = _proj(xn, p["wk"])
-    v = _proj(xn, p["wv"])
+    k = _proj(src, p["wk"])
+    v = _proj(src, p["wv"])
     if positions is not None:
         q = rope(q, positions, cfg.rope_theta)
         k = rope(k, positions, cfg.rope_theta)
@@ -77,7 +82,7 @@ def _project_qkv(p, xn, cfg, positions=None):
 def _attend(q, k, v, cfg: ModelConfig, spec: LayerSpec):
     return flash_ops.attention(
         q, k, v,
-        causal=spec.causal,
+        causal=spec.causal and spec.kind != "cross_attn",
         window=spec.window,
         softcap=cfg.attn_logit_softcap,
         use_pallas=cfg.use_pallas_attn,
@@ -92,11 +97,14 @@ def attn_forward(
     cfg: ModelConfig,
     spec: LayerSpec,
     positions: torch.Tensor,          # [S]
+    enc_out: torch.Tensor | None = None,  # cross-attention memory [B, S_enc, D]
 ) -> torch.Tensor:
     """Full-sequence attention (train / prefill)."""
-    _supported(cfg, spec)
+    _supported(cfg)
     xn = rms_norm(x, p["norm"])
-    q, k, v = _project_qkv(p, xn, cfg, positions=positions)
+    cross = spec.kind == "cross_attn"
+    q, k, v = _project_qkv(p, xn, cfg, positions=None if cross else positions,
+                           kv_source=enc_out if cross else None)
     o = _attend(q, k, v, cfg, spec)
     return x + _out_proj(o, p["wo"], x.dtype)
 
@@ -106,8 +114,11 @@ def attn_forward(
 # ---------------------------------------------------------------------------
 
 def attn_cache_shape(cfg: ModelConfig, spec: LayerSpec, batch: int, max_len: int):
-    """Cache entry {k, v}: ring buffer of ``window`` for SWA layers."""
-    if spec.window is not None:
+    """Cache entry {k, v}: ring buffer of ``window`` for SWA layers; the
+    encoder's (or vision stub's) length for cross-attention."""
+    if spec.kind == "cross_attn":
+        s = cfg.enc_seq or cfg.n_vis_tokens
+    elif spec.window is not None:
         s = min(spec.window, max_len)
     else:
         s = max_len
@@ -122,17 +133,22 @@ def attn_init_cache(cfg, spec, batch, max_len, device):
     return {n: torch.zeros(s, dtype=dtype, device=device) for n, s in shapes.items()}
 
 
-def attn_prefill(p, x, cfg, spec, positions, max_len):
-    """Forward + produce the decode cache (window layers keep the tail)."""
-    _supported(cfg, spec)
+def attn_prefill(p, x, cfg, spec, positions, max_len, enc_out=None):
+    """Forward + produce the decode cache (window layers keep the tail;
+    cross-attention keeps the K/V of ``enc_out``)."""
+    _supported(cfg)
     xn = rms_norm(x, p["norm"])
-    q, k, v = _project_qkv(p, xn, cfg, positions=positions)
+    cross = spec.kind == "cross_attn"
+    q, k, v = _project_qkv(p, xn, cfg, positions=None if cross else positions,
+                           kv_source=enc_out if cross else None)
     o = _attend(q, k, v, cfg, spec)
     out = _out_proj(o, p["wo"], x.dtype)
 
     dtype = getattr(torch, cfg.cache_dtype)
     b, hkv, s_len, hd = k.shape
-    if spec.window is not None:
+    if cross:
+        cache = {"k": k.to(dtype).contiguous(), "v": v.to(dtype).contiguous()}
+    elif spec.window is not None:
         w = min(spec.window, max_len)
         # Ring buffer: position s lives at slot s % w; for a prefill of
         # length S the live entries are the last min(w, S) positions.
@@ -156,11 +172,16 @@ def attn_prefill(p, x, cfg, spec, positions, max_len):
 def attn_decode(p, x, cache, cfg, spec, pos: int):
     """Single-token decode. x: [B, 1, D]; pos: the position being generated.
 
-    Writes the token's K/V into ``cache`` in place and returns it."""
-    _supported(cfg, spec)
+    Writes the token's K/V into ``cache`` in place and returns it; a
+    cross-attention layer reads its cache and leaves it as it is."""
+    _supported(cfg)
     xn = rms_norm(x, p["norm"])
     dt = xn.dtype
     q = _proj(xn, p["wq"])
+    if spec.kind == "cross_attn":
+        o = flash_ops.attention(q, cache["k"].to(dt), cache["v"].to(dt),
+                                causal=False, use_pallas=False)
+        return x + _out_proj(o, p["wo"], dt), cache
     k_new = _proj(xn, p["wk"])
     v_new = _proj(xn, p["wv"])
     posv = torch.full((1,), pos, dtype=torch.int32, device=x.device)

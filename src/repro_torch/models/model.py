@@ -1,44 +1,53 @@
-"""The LM scaffold's model: init, forward, and the serving path with KV
-caches (port of ``repro/models/model.py`` for stages of ``attn`` layers with
-dense MLPs).
+"""The LM scaffold's model: init, forward, loss, remat and the serving path
+with KV/SSM caches, for every layer kind of the ten configs (port of
+``repro/models/model.py``).
 
 Parameters mirror the config's stage structure: ``params['stages'][si]`` is
 a dict whose leaves carry a leading ``[repeat]`` axis, the JAX pytree's
 layout, so that the JAX package's parameters carry across leaf for leaf
-(``interop.model_params_from_numpy``).  The JAX ``lax.scan`` over the repeat
-axis is a Python loop here.  Caches follow the same layout; ``decode_step``
-writes into its cache in place and returns it.
+(``interop.model_params_from_numpy``) and AdamW decays the same leaves
+(``ndim >= 2``: the stacked norms are decayed, ``final_norm`` is not).  The
+JAX ``lax.scan`` over the repeat axis is a Python loop over the repeats'
+views (``unbind``: one stack in the backward pass).  Shared blocks (zamba2)
+are stored once in ``params['shared']`` and applied at every
+``shared_attn`` slot; whisper's encoder lives in ``params['encoder']``.
+Caches follow the same layout; ``decode_step`` writes into its cache in
+place and returns it.
+
+Remat (``cfg.remat``) wraps each repeat's body in
+``torch.utils.checkpoint``: ``"full"`` recomputes everything in the
+backward pass, ``"dots"`` saves the outputs of matmuls with no batch dims
+(``aten.mm``/``addmm``, what ``checkpoint_dots_with_no_batch_dims``
+saves) and recomputes the rest, ``"none"`` checkpoints nothing.  Remat
+changes memory, never numbers.
 
 Public entry points:
   init_params(cfg, seed, device)           — random init from a seed
-  forward(params, cfg, tokens)             — logits [B, S, V] f32 (+ aux 0)
-  init_cache / prefill / decode_step       — serving path with KV caches
+  forward(params, cfg, tokens, ...)        — logits [B, S, V] f32 + MoE aux
+  loss_fn(params, cfg, batch)              — next-token CE + z-loss + aux
+  init_cache / prefill / decode_step       — serving path with caches
 
-Not ported yet, and raising NotImplementedError (ROADMAP Queue 1 #9): MLA,
-mamba, shared attention, cross-attention, MoE, the encoder, ``loss_fn`` and
-remat (the training slice).
+Not ported yet, and raising NotImplementedError: ``cfg.sp_attn`` (ROADMAP
+Queue 1 #9c).
 """
 from __future__ import annotations
 
+import functools
+
 import torch
+from torch.utils import checkpoint as _ckpt
 
 from .. import device as _device
-from . import attention
+from . import attention, mla, moe, ssm
 from .config import LayerSpec, ModelConfig
 from .layers import KeyGen, dense_init, embed_init, rms_norm, swiglu
 
 
 def _check_config(cfg: ModelConfig) -> None:
-    for _, pattern in cfg.stages:
-        for spec in pattern:
-            if spec.kind != "attn":
-                raise NotImplementedError(
-                    f"layer kind {spec.kind!r} {attention.NOT_PORTED}")
-            if spec.moe:
-                raise NotImplementedError(f"MoE layers {attention.NOT_PORTED}")
-    if cfg.n_enc_layers or cfg.n_vis_tokens:
+    if cfg.sp_attn:
         raise NotImplementedError(
-            f"the encoder and vision stubs {attention.NOT_PORTED}")
+            f"sp_attn (activation sharding over launch/sharding.py) "
+            f"{attention.NOT_PORTED}")
 
 
 # ---------------------------------------------------------------------------
@@ -56,9 +65,17 @@ def _init_mlp(kg: KeyGen, cfg: ModelConfig) -> dict:
 
 
 def _init_layer(kg: KeyGen, cfg: ModelConfig, spec: LayerSpec) -> dict:
-    p = {"attn": attention.init_attn(kg, cfg)}
-    if spec.has_mlp:
-        p["mlp"] = _init_mlp(kg, cfg)
+    p: dict = {}
+    if spec.kind in ("attn", "cross_attn"):
+        p["attn"] = attention.init_attn(kg, cfg)
+    elif spec.kind == "mla":
+        p["mla"] = mla.init_mla(kg, cfg)
+    elif spec.kind == "mamba":
+        p["mamba"] = ssm.init_mamba(kg, cfg)
+    # shared_attn: its parameters live in params['shared'].
+    if spec.has_mlp and spec.kind not in ("mamba", "shared_attn"):
+        p["moe" if spec.moe else "mlp"] = (
+            moe.init_moe(kg, cfg) if spec.moe else _init_mlp(kg, cfg))
     return p
 
 
@@ -80,32 +97,47 @@ def tree_leaves(tree) -> list:
     return [tree]
 
 
+def tree_with_leaves(tree, leaves):
+    """``tree`` with its leaves replaced, in :func:`tree_leaves` order."""
+    it = iter(leaves)
+    return tree_map(lambda _: next(it), tree)
+
+
 def _stack(trees: list):
     return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def _init_stage(kg: KeyGen, cfg: ModelConfig, repeat: int, pattern) -> dict:
+    reps = [{f"L{pi}": _init_layer(kg, cfg, spec) for pi, spec in enumerate(pattern)}
+            for _ in range(repeat)]
+    return _stack(reps)
 
 
 def init_params(cfg: ModelConfig, seed: int = 0, device=None) -> dict:
     """Float32 parameters from ``seed``, with the JAX init's distributions
     (not its numbers), on ``device`` (default: the card)."""
-    _check_config(cfg)
     dev = _device.resolve(device)
     kg = KeyGen(seed, dev)
     params: dict = {"embed": embed_init(kg(), cfg.vocab_size, cfg.d_model)}
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(kg(), cfg.vocab_size, cfg.d_model)
     params["final_norm"] = torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev)
-    stages = []
-    for repeat, pattern in cfg.stages:
-        reps = [{f"L{pi}": _init_layer(kg, cfg, spec) for pi, spec in enumerate(pattern)}
-                for _ in range(repeat)]
-        stages.append(_stack(reps))
-        del reps
-    params["stages"] = stages
+    params["stages"] = [_init_stage(kg, cfg, repeat, pattern)
+                        for repeat, pattern in cfg.stages]
+    if any(s.kind == "shared_attn" for _, p in cfg.stages for s in p):
+        params["shared"] = {"attn": attention.init_attn(kg, cfg),
+                            "mlp": _init_mlp(kg, cfg)}
+    if cfg.n_enc_layers:
+        enc = (LayerSpec(kind="attn", causal=False),) * cfg.enc_pattern_mult
+        params["encoder"] = {
+            "stages": [_init_stage(kg, cfg, cfg.n_enc_layers, enc)],
+            "final_norm": torch.zeros((cfg.d_model,), dtype=torch.float32, device=dev),
+        }
     return params
 
 
 # ---------------------------------------------------------------------------
-# Forward (scoring).
+# Forward (train / scoring).
 # ---------------------------------------------------------------------------
 
 def _mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -113,14 +145,103 @@ def _mlp_forward(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x + swiglu(xn, p["gate"], p["up"], p["down"])
 
 
-def _rep(stage_params, r: int):
-    """Repeat ``r`` of a stacked stage (views, no copy)."""
-    return tree_map(lambda a: a[r], stage_params)
+def _apply_layer(spec: LayerSpec, p: dict, x, cfg, positions, shared, enc_out):
+    """One layer forward; returns (x, aux loss or None)."""
+    if spec.kind == "attn":
+        x = attention.attn_forward(p["attn"], x, cfg, spec, positions)
+    elif spec.kind == "cross_attn":
+        x = attention.attn_forward(p["attn"], x, cfg, spec, positions, enc_out=enc_out)
+    elif spec.kind == "mla":
+        x = mla.mla_forward(p["mla"], x, cfg, positions)
+    elif spec.kind == "mamba":
+        return ssm.mamba_forward(p["mamba"], x, cfg), None
+    elif spec.kind == "shared_attn":
+        x = attention.attn_forward(shared["attn"], x, cfg, spec, positions)
+        return _mlp_forward(shared["mlp"], x), None
+    else:
+        raise ValueError(spec.kind)
+    return _ffn(spec, p, x, cfg)
+
+
+def _ffn(spec: LayerSpec, p: dict, x, cfg):
+    """The layer's MoE or MLP tail, if it has one: (x, aux loss or None)."""
+    if spec.has_mlp and spec.moe:
+        return moe.moe_forward(p["moe"], x, cfg)
+    if spec.has_mlp:
+        return _mlp_forward(p["mlp"], x), None
+    return x, None
+
+
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matmuls with no batch dims, recompute the rest."""
+    del ctx, args, kwargs
+    return (_ckpt.CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else _ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def _remat_wrap(fn, cfg: ModelConfig):
+    if not torch.is_grad_enabled() or cfg.remat not in ("full", "dots"):
+        return fn
+    kw: dict = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = functools.partial(
+            _ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    return functools.partial(_ckpt.checkpoint, fn, **kw)
+
+
+def _reps(stage, repeat: int) -> list:
+    """The ``repeat`` per-repeat trees of a stacked stage (parameters or a
+    cache): views of one ``unbind`` per leaf, whose backward is one stack
+    and which take a cache's in-place writes."""
+    cols = [a.unbind(0) for a in tree_leaves(stage)]
+    return [tree_with_leaves(stage, [c[r] for c in cols]) for r in range(repeat)]
+
+
+def _stage_forward(stage_params, pattern, repeat, x, cfg, positions, shared, enc_out):
+    """A stage's repeats in order, each one remat-wrapped body; returns
+    (x, the stage's aux loss)."""
+    def body(h, aux, rep, shared, enc_out):
+        for pi, spec in enumerate(pattern):
+            h, a = _apply_layer(spec, rep[f"L{pi}"], h, cfg, positions, shared, enc_out)
+            if a is not None:   # the JAX carry adds an exact 0 for the others
+                aux = aux + a
+        return h, aux
+
+    body = _remat_wrap(body, cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for rep in _reps(stage_params, repeat):
+        x, aux = body(x, aux, rep, shared, enc_out)
+    return x, aux
+
+
+def _encode(params, cfg: ModelConfig, enc_input):
+    """Whisper-style encoder over precomputed frame embeddings (stub
+    frontend): non-causal attention layers, then a final norm."""
+    x = enc_input.to(getattr(torch, cfg.dtype))
+    positions = torch.arange(x.shape[1], device=x.device)
+    pattern = (LayerSpec(kind="attn", causal=False),) * cfg.enc_pattern_mult
+    x, _ = _stage_forward(params["encoder"]["stages"][0], pattern, cfg.n_enc_layers,
+                          x, cfg, positions, None, None)
+    return rms_norm(x, params["encoder"]["final_norm"])
+
+
+def _enc_out(params, cfg: ModelConfig, enc_input, vis_input):
+    """The cross-attention memory: the encoder's output, or the vision
+    stub's patch embeddings as they are."""
+    enc_out = None
+    if cfg.n_enc_layers and enc_input is not None:
+        enc_out = _encode(params, cfg, enc_input)
+    if cfg.n_vis_tokens and vis_input is not None:
+        enc_out = vis_input.to(getattr(torch, cfg.dtype))
+    return enc_out
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     dtype = getattr(torch, cfg.dtype)
-    x = params["embed"][tokens].to(dtype)
+    x = params["embed"][tokens.long()].to(dtype)
     # The scale rounds to the activation dtype first (√2560 → 50.5 in bf16).
     return x * torch.tensor(cfg.d_model**0.5, dtype=dtype, device=x.device)
 
@@ -135,27 +256,52 @@ def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+            enc_input: torch.Tensor | None = None,   # [B, enc_seq, D] (whisper stub)
+            vis_input: torch.Tensor | None = None,   # [B, n_vis, D] (vision stub)
             positions: torch.Tensor | None = None):
-    """Returns (logits [B,S,V] f32, aux loss 0: no MoE here)."""
+    """Returns (logits [B,S,V] f32, aux MoE loss f32 scalar)."""
     _check_config(cfg)
     x = _embed(params, cfg, tokens)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=x.device)
-    for si, (repeat, pattern) in enumerate(cfg.stages):
-        for r in range(repeat):
-            rep = _rep(params["stages"][si], r)
-            for pi, spec in enumerate(pattern):
-                p = rep[f"L{pi}"]
-                x = attention.attn_forward(p["attn"], x, cfg, spec, positions)
-                if spec.has_mlp:
-                    x = _mlp_forward(p["mlp"], x)
+    enc_out = _enc_out(params, cfg, enc_input, vis_input)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for si, (repeat, pattern) in enumerate(cfg.stages):
+        x, a = _stage_forward(params["stages"][si], pattern, repeat, x, cfg,
+                              positions, params.get("shared"), enc_out)
+        aux = aux + a
     return _logits(params, cfg, x), aux
+
+
+def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
+    """Next-token CE + z-loss + MoE load-balancing aux: (total, {"ce",
+    "zloss", "moe_aux"}).  ``batch`` holds ``tokens`` and ``labels`` [B, S]
+    and, where the config has them, ``enc_input`` / ``vis_input``."""
+    logits, aux = forward(params, cfg, batch["tokens"],
+                          enc_input=batch.get("enc_input"),
+                          vis_input=batch.get("vis_input"))
+    labels = batch["labels"].long()
+    logz = torch.logsumexp(logits, dim=-1)
+    logp = torch.gather(logits, -1, labels[..., None])[..., 0] - logz
+    ce = -torch.mean(logp)
+    zloss = 1e-4 * torch.mean(logz**2)
+    total = ce + zloss + 0.01 * aux
+    return total, {"ce": ce, "zloss": zloss, "moe_aux": aux}
 
 
 # ---------------------------------------------------------------------------
 # Serving: cache init / prefill / decode.
 # ---------------------------------------------------------------------------
+
+def _layer_cache(cfg, spec, batch, max_len, device):
+    if spec.kind in ("attn", "cross_attn", "shared_attn"):
+        return attention.attn_init_cache(cfg, spec, batch, max_len, device)
+    if spec.kind == "mla":
+        return mla.mla_init_cache(cfg, batch, max_len, device)
+    if spec.kind == "mamba":
+        return ssm.mamba_init_cache(cfg, batch, device)
+    raise ValueError(spec.kind)
+
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     """Zeroed decode cache mirroring the stage structure."""
@@ -163,10 +309,25 @@ def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     dev = _device.resolve(device)
     stages = []
     for repeat, pattern in cfg.stages:
-        one = {f"L{pi}": attention.attn_init_cache(cfg, spec, batch, max_len, dev)
+        one = {f"L{pi}": _layer_cache(cfg, spec, batch, max_len, dev)
                for pi, spec in enumerate(pattern)}
         stages.append(tree_map(lambda a: a.expand(repeat, *a.shape).contiguous(), one))
     return {"stages": stages}
+
+
+def _apply_layer_decode(spec, p, c, x, cfg, pos, shared):
+    if spec.kind in ("attn", "cross_attn"):
+        x, c = attention.attn_decode(p["attn"], x, c, cfg, spec, pos)
+    elif spec.kind == "mla":
+        x, c = mla.mla_decode(p["mla"], x, c, cfg, pos)
+    elif spec.kind == "mamba":
+        return ssm.mamba_decode(p["mamba"], x, c, cfg)
+    elif spec.kind == "shared_attn":
+        x, c = attention.attn_decode(shared["attn"], x, c, cfg, spec, pos)
+        return _mlp_forward(shared["mlp"], x), c
+    else:
+        raise ValueError(spec.kind)
+    return _ffn(spec, p, x, cfg)[0], c
 
 
 def decode_step(params: dict, cache: dict, cfg: ModelConfig,
@@ -174,40 +335,54 @@ def decode_step(params: dict, cache: dict, cfg: ModelConfig,
     """One-token decode: returns (logits [B,1,V], cache).
 
     ``token`` [B, 1]; ``pos`` the position being generated (one for all
-    rows).  The new K/V are written into ``cache`` in place."""
+    rows).  Each layer writes its new state into ``cache`` in place."""
     _check_config(cfg)
     pos = int(pos)
     x = _embed(params, cfg, token)
+    shared = params.get("shared")
     for si, (repeat, pattern) in enumerate(cfg.stages):
-        for r in range(repeat):
-            rep = _rep(params["stages"][si], r)
-            rep_cache = _rep(cache["stages"][si], r)
+        for rep, rep_cache in zip(_reps(params["stages"][si], repeat),
+                                  _reps(cache["stages"][si], repeat)):
             for pi, spec in enumerate(pattern):
-                p = rep[f"L{pi}"]
-                x, _ = attention.attn_decode(p["attn"], x, rep_cache[f"L{pi}"],
-                                             cfg, spec, pos)
-                if spec.has_mlp:
-                    x = _mlp_forward(p["mlp"], x)
+                x, _ = _apply_layer_decode(spec, rep[f"L{pi}"], rep_cache[f"L{pi}"],
+                                           x, cfg, pos, shared)
     return _logits(params, cfg, x), cache
 
 
-def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_len: int):
+def _apply_layer_prefill(spec, p, x, cfg, positions, max_len, shared, enc_out):
+    if spec.kind in ("attn", "cross_attn"):
+        x, c = attention.attn_prefill(
+            p["attn"], x, cfg, spec, positions, max_len,
+            enc_out=enc_out if spec.kind == "cross_attn" else None)
+    elif spec.kind == "mla":
+        x, c = mla.mla_prefill(p["mla"], x, cfg, positions, max_len)
+    elif spec.kind == "mamba":
+        return ssm.mamba_forward(p["mamba"], x, cfg, return_state=True)
+    elif spec.kind == "shared_attn":
+        x, c = attention.attn_prefill(shared["attn"], x, cfg, spec, positions, max_len)
+        return _mlp_forward(shared["mlp"], x), c
+    else:
+        raise ValueError(spec.kind)
+    return _ffn(spec, p, x, cfg)[0], c
+
+
+def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
+            enc_input: torch.Tensor | None = None,
+            vis_input: torch.Tensor | None = None):
     """Forward over a prompt, producing (last-token logits [B, V], cache)."""
     _check_config(cfg)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
+    shared = params.get("shared")
+    enc_out = _enc_out(params, cfg, enc_input, vis_input)
     stages = []
     for si, (repeat, pattern) in enumerate(cfg.stages):
         reps = []
-        for r in range(repeat):
-            rep = _rep(params["stages"][si], r)
+        for rep in _reps(params["stages"][si], repeat):
             caches = {}
             for pi, spec in enumerate(pattern):
-                p = rep[f"L{pi}"]
-                x, caches[f"L{pi}"] = attention.attn_prefill(
-                    p["attn"], x, cfg, spec, positions, max_len)
-                if spec.has_mlp:
-                    x = _mlp_forward(p["mlp"], x)
+                x, caches[f"L{pi}"] = _apply_layer_prefill(
+                    spec, rep[f"L{pi}"], x, cfg, positions, max_len, shared, enc_out)
             reps.append(caches)
         stages.append(_stack(reps))
     return _logits(params, cfg, x[:, -1]), {"stages": stages}

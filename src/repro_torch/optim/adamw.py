@@ -3,8 +3,11 @@
 A plain port, not ``torch.optim.AdamW``: the hyperparameter fit's parity
 with the JAX package depends on the same update order and epsilon placement
 (ε added to √v̂, bias corrections computed in float32).  Parameters, moments
-and gradients are nested dicts (or lists/tuples) of tensors; every update is
-functional and returns new tensors.
+and gradients are nested dicts (or lists/tuples) of tensors.  The step is
+computed in place by ``update_`` (the gradients, moments and parameters it
+is given are overwritten), so that a large model's step holds one copy of
+each, as JAX's donated buffers do; ``update`` is the functional form, the
+same arithmetic on copies.
 """
 from __future__ import annotations
 
@@ -56,32 +59,46 @@ class AdamW:
         )
 
     def update(self, grads: Any, state: AdamState, params: Any):
+        """The functional update: :meth:`update_` applied to copies, so the
+        tensors given are left as they were."""
+        def copy(tree):
+            return tree_map(lambda x: x.detach().clone(), tree)
+
+        return self.update_(copy(grads), AdamState(state.step, copy(state.mu),
+                                                   copy(state.nu)), copy(params))
+
+    def update_(self, grads: Any, state: AdamState, params: Any):
+        """The update in place: the clipped gradients, then μ, ν and the
+        parameters overwrite ``grads``, ``state.mu``, ``state.nu`` and
+        ``params``, one leaf at a time.  Returns (params, AdamState) holding
+        those tensors."""
         step = state.step + 1
+        g_leaves = tree_leaves(grads)
         if self.grad_clip is not None:
             gnorm = global_norm(grads)
             scale = torch.clamp(self.grad_clip / torch.clamp(gnorm, min=1e-12),
                                 max=1.0)
-            grads = tree_map(lambda g: g * scale, grads)
+            for g in g_leaves:
+                g.mul_(scale)
         step_f = torch.tensor(float(step), dtype=torch.float32)
         lr = self.lr(step_f) if callable(self.lr) else self.lr
         b1, b2 = self.b1, self.b2
-        mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, grads)
-        nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, grads)
         # float32 powers, as jnp computes b ** step.astype(float32).
         c1 = 1 - torch.pow(torch.tensor(b1, dtype=torch.float32), step_f)
         c2 = 1 - torch.pow(torch.tensor(b2, dtype=torch.float32), step_f)
 
-        def upd(p, m, v):
-            mhat = m / c1.to(m.device)
-            vhat = v / c2.to(v.device)
-            delta = mhat / (torch.sqrt(vhat) + self.eps)
+        def upd_(p, m, v, g):   # leaves paired by key, as tree_map does
+            m.mul_(b1).add_((1 - b1) * g)
+            v.mul_(b2).add_((1 - b2) * g * g)
+            delta = (m / c1.to(m.device)) / (torch.sqrt(v / c2.to(v.device)) + self.eps)
             if self.weight_decay and p.dim() >= 2:  # decay matrices only
                 delta = delta + self.weight_decay * p
             lr_p = lr.to(p.device) if isinstance(lr, torch.Tensor) else lr
-            return (p - lr_p * delta).to(p.dtype)
+            p.sub_(lr_p * delta)
 
-        new_params = tree_map(upd, params, mu, nu)
-        return new_params, AdamState(step=step, mu=mu, nu=nu)
+        with torch.no_grad():
+            tree_map(upd_, params, state.mu, state.nu, grads)
+        return params, AdamState(step=step, mu=state.mu, nu=state.nu)
 
 
 def global_norm(tree: Any) -> torch.Tensor:

@@ -242,17 +242,21 @@ def test_bf16_activations_follow_jax(jx):
 
 
 def test_unported_kinds_raise():
-    """MLA, MoE, mamba, shared attention, cross-attention and the encoder
-    raise NotImplementedError naming the ROADMAP item; sp_attn too."""
+    """Only cfg.sp_attn (activation sharding, ROADMAP Queue 1 #9c) stays
+    unported: every layer kind inits, and with sp_attn set forward,
+    prefill and decode raise NotImplementedError naming the item."""
     for arch in ("deepseek-v2-236b", "moonshot-v1-16b-a3b", "mamba2-2.7b",
-                 "zamba2-7b", "llama-3.2-vision-11b", "whisper-base"):
-        cfg = tconfigs.reduce_config(tconfigs.get_config(arch))
-        with pytest.raises(NotImplementedError, match="ROADMAP Queue 1"):
-            tmodel.init_params(cfg, device="cpu")
-    cfg = dataclasses.replace(_variant(tconfigs, "h2o-danube-1.8b"), sp_attn=True)
-    params = tmodel.init_params(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="sp_attn"):
-        tmodel.forward(params, cfg, torch.zeros((1, 4)).long())
+                 "zamba2-7b", "llama-3.2-vision-11b", "whisper-base",
+                 "h2o-danube-1.8b"):
+        cfg = dataclasses.replace(
+            tconfigs.reduce_config(tconfigs.get_config(arch)), sp_attn=True)
+        params = tmodel.init_params(cfg, device="cpu")
+        tok = torch.zeros((1, 4)).long()
+        for call in (lambda: tmodel.forward(params, cfg, tok),
+                     lambda: tmodel.prefill(params, cfg, tok, max_len=8),
+                     lambda: tmodel.init_cache(cfg, 1, 8, device="cpu")):
+            with pytest.raises(NotImplementedError, match=r"sp_attn.*Queue 1 #9c"):
+                call()
 
 
 # The gradient check of the card's kernels: danube at a narrow width (2
@@ -287,7 +291,9 @@ def _next_token_grads(params, cfg, tokens):
 def test_gpu_forward_gradients_match_the_cpu(cuda):
     """Autograd through ``forward`` on the card (rmsnorm and flash_attention
     on their kernels) gives every parameter the gradient the CPU (plain
-    versions) gives it, within GRAD_TOL of that gradient's scale."""
+    versions) gives it, within GRAD_TOL of that gradient's scale.  Launches:
+    2 flash and 5 rmsnorm in the forward, and under danube's remat "dots"
+    2 and 4 more where the backward recomputes each layer's body."""
     from repro_torch import configs as cfgs
 
     cfg = dataclasses.replace(
@@ -300,8 +306,9 @@ def test_gpu_forward_gradients_match_the_cpu(cuda):
     from repro_torch.kernels.rmsnorm import ops as rops
     before = (fops.LAUNCHES["flash_attention"], rops.LAUNCHES["rmsnorm"])
     card_loss, card = _next_token_grads(params, cfg, tok.to(cuda))
-    assert fops.LAUNCHES["flash_attention"] - before[0] == 2
-    assert rops.LAUNCHES["rmsnorm"] - before[1] == 5
+    assert cfg.remat == "dots"
+    assert fops.LAUNCHES["flash_attention"] - before[0] == 2 + 2
+    assert rops.LAUNCHES["rmsnorm"] - before[1] == 5 + 4
     host = tmodel.tree_map(lambda a: a.detach().cpu(), params)
     cpu_loss, want = _next_token_grads(host, cfg, tok)
     close(card_loss, cpu_loss, GRAD_TOL)
