@@ -208,7 +208,27 @@ non-zero exit and no result line):
                exits 113 at 'serving.fleet.observe' with the killed observe
                journalled, and recover() equals the journalled fold bit for
                bit on 256 nodes.
- 19. timing    each kernel at the main-path shapes with CUDA events: kernel,
+ 19. sharding  (a) flash_attention with q_offset at the query shards of the
+               sequence-parallel cells on the 16-wide model axis (gemma3-4b's
+               prefill_32k, 8 heads of 320, causal and window 1024; whisper-
+               base's, 8 heads of 64 on the tensor cores), f32 and bf16,
+               against mha_ref(q_offset=...), the last shard of each timed
+               beside the plain version and SDPA; at q_offset 0 the outputs'
+               digests equal those of the kernel before q_offset existed
+               (commit 90fbc73; both instances).
+               (b) danube at full width and depth with fsdp, ZeRO-1 and
+               sp_attn: one train step with params, μ and ν as DTensors
+               (launch.sharding's placements) on a 1×1 NCCL DeviceMesh,
+               against the plain step on the same batch, loss and params
+               within 1e-6 (bit-equal expected); launch counts set to 0
+               before the step and gated after (48 flash, all tensor-core,
+               97 rmsnorm); step ms and peak MiB.  (c) the dry run of
+               danube's four cells and the GRF-GP cell, plain and compact,
+               on both production meshes (fake process groups of 256 and
+               512 ranks, no card): per-device FLOPs, bytes, wire bytes,
+               argument / temp bytes and the H100 roofline terms, gated on
+               status ok and FLOPs > 0; records in chiprun_out/dryrun/.
+ 20. timing    each kernel at the main-path shapes with CUDA events: kernel,
                plain version, library call where one exists, and the bound
                (ell_spmv at the prior draw [10⁶, 48] and one chunk each of
                [65536, 48] and [65536, 144], u [10⁶, 16], and the K = 144
@@ -241,11 +261,12 @@ non-zero exit and no result line):
 The new shapes of phase 12 and khat_fused's at phase 13's CG shape join
 their kernels' `shapes` lists in that line, and so do flash_attention and
 rmsnorm at the train step's shapes ([2, 32, 2048, 80] causal, SDPA
-is_causal beside; [4096, 2560]) with their launches a step.
+is_causal beside; [4096, 2560]) with their launches a step, and
+flash_attention's offset shards of phase sharding.
 
 Each path (main, fit, serving, each BO loop, solvers, lm, train, each
 call of lm-archs, baselines, svgp, jlt, obs, each part of resilience and
-of fleet) is driven with every launch
+of fleet, the sharded train step) is driven with every launch
 count set to 0 just before it and read just after, and fails if a kernel it
 runs was never launched; a kernel's `launches` in the result line is the
 sum over those runs.  walk_sampler's launches are also printed by (M, K),
@@ -477,6 +498,40 @@ ARCHS = dict(names=("zamba2-7b", "llama-3.2-vision-11b", "deepseek-v2-236b",
              seed=0, batch=4, prompt=1024, prompts={"whisper-base": 448}, new=8,
              check_prompt=16, check_steps=8, check_rtol=1e-3,
              train_batch=1, train_seq=512)
+
+# Slice 13, phase sharding.
+# (a) flash_attention with q_offset at the local shapes of the sequence-
+# parallel cells on the 16-wide model axis (the query heads do not divide
+# it, so each rank takes S/16 query rows over the whole K/V and its rows'
+# global offset): gemma3-4b's prefill_32k (8 heads, 4 KV, of 320; 2 prompts
+# a data rank), its global layer and its local one (window 1024), and
+# whisper-base's decoder (8 heads of 64, the tensor-core instance in bf16),
+# at the shards listed, f32 and bf16 against mha_ref(q_offset=...).
+OFFSET_CASES = [
+    ((2, 8, 4, 32768, 320), {}, 16, (0, 1, 15)),
+    ((2, 8, 4, 32768, 320), dict(window=1024), 16, (1, 15)),
+    ((2, 8, 8, 32768, 64), {}, 16, (0, 7, 15)),
+]
+# ... and at q_offset = 0, bit for bit against the kernel as it was before
+# the argument existed (commit 90fbc73): sha-256 prefixes of the
+# outputs at these cases (inputs from numpy, seeds 500 + i; f32 then bf16),
+# measured with flash_digests on that commit's build on an H100 80GB HBM3.
+PRE_OFFSET_CASES = [((1, 32, 8, 1024, 1024, 80), dict(window=4096)),
+                    ((1, 8, 4, 2048, 2048, 320), dict(window=1024)),
+                    ((1, 4, 4, 128, 128, 32), dict(softcap=30.0)),
+                    ((1, 8, 8, 128, 1500, 64), dict(causal=False))]
+PRE_OFFSET_DIGESTS = ["74e84b1d94cb0516", "3731e14b934ab421", "6b3623e57149ff71",
+                      "f5c3e5d31cba8e09", "15f0c2827dda18d1", "5a33363a9e70db99",
+                      "b7d6b1692b573070", "89f66f1341828554"]
+# (b) TRAIN's config with fsdp, ZeRO-1 and sp_attn: one step on its first
+# stream batch with params, μ and ν as DTensors (sharding.param_shardings,
+# opt_shardings) on a 1×1 NCCL DeviceMesh, against the plain step on the
+# same batch: loss and params within 1e-6 of scale (bit-equal expected: a
+# one-rank mesh runs the same local ops).
+# (c) the dry run of TRAIN's arch at its four shapes and the GRF-GP cell,
+# plain and compact, on both production meshes (fake process groups of 256
+# and 512 ranks): status ok and FLOPs > 0.
+SHARD = dict(rtol=1e-6, dry_arch="h2o-danube-1.8b")
 
 REPLACES = {
     "walk_sampler": "src/repro/kernels/walk_sampler/walk_sampler.py:59",
@@ -4562,6 +4617,252 @@ def csr(vals, cols, n_cols: int, transpose: bool = False):
         return coo.coalesce().to_sparse_csr()
 
 
+def flash_digests(dev, call) -> list:
+    """sha-256 prefixes of ``call(q, k, v, kw)`` at PRE_OFFSET_CASES, f32 then
+    bf16, from numpy inputs (the same bytes on any machine)."""
+    import hashlib
+
+    import torch
+
+    out = []
+    for i, ((b, h, hkv, sq, skv, d), kw) in enumerate(PRE_OFFSET_CASES):
+        rng = np.random.default_rng(500 + i)
+        base = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32))
+                for s in ((b, h, sq, d), (b, hkv, skv, d), (b, hkv, skv, d))]
+        for dt, raw in ((torch.float32, torch.int32), (torch.bfloat16, torch.int16)):
+            q, k, v = (t.to(dev).to(dt) for t in base)
+            o = call(q, k, v, kw).contiguous()
+            sync(dev)
+            out.append(hashlib.sha256(o.view(raw).cpu().numpy().tobytes())
+                       .hexdigest()[:16])
+    return out
+
+
+# The offset shards' timing rows, which join flash_attention's row.
+OFFSET_ROWS: list = []
+
+
+def check_offset_cases(dev) -> None:
+    """(a) of phase sharding: OFFSET_CASES against mha_ref(q_offset=...),
+    each gated on the instance the rule names; the last shard of each case
+    timed (graph replays) beside the plain version and SDPA with its
+    boolean mask; then q_offset = 0 against the earlier kernel's digests."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels.flash_attention import ops, ref
+
+    worst = {torch.float32: 0.0, torch.bfloat16: 0.0}
+    n = 0
+    for i, ((b, h, hkv, s, d), kw, parts, shards) in enumerate(OFFSET_CASES):
+        sl = s // parts
+        for dt in (torch.float32, torch.bfloat16):
+            q, k, v = attn_inputs(dev, (b, h, hkv, s, s, d), dt, 600 + i)
+            for r in shards:
+                qr = q[:, :, r * sl:(r + 1) * sl]
+                before = dict(ops.LAUNCHES)
+                got = ops.flash_attention(qr, k, v, q_offset=r * sl, **kw)
+                sync(dev)
+                inst = (ops.TENSOR_CORE if tc_expected(dt, d) and ops.aligned(qr, k, v)
+                        else ops.CUDA_CORE)
+                expect(ops.LAUNCHES[inst] == before[inst] + 1,
+                       f"flash_attention offset {r * sl}: expected a {inst} launch")
+                want = ref.mha_ref(qr, k, v, q_offset=r * sl, **kw)
+                if dt == torch.float32:
+                    err, rel = rel_err(got, want)
+                    expect(rel <= ATTN_RTOL, f"flash_attention [{b},{h},{sl}/{s},{d}] "
+                           f"{kw} offset {r * sl} f32: rel {rel:.2e}")
+                else:
+                    err, rel = bf16_err(got, want)
+                    expect(rel <= BF16_ULPS, f"flash_attention [{b},{h},{sl}/{s},{d}] "
+                           f"{kw} offset {r * sl} bf16: {rel:.2f} ulps")
+                worst[dt] = max(worst[dt], rel)
+                n += 1
+                del want
+            if dt == torch.bfloat16:   # time the last shard (the most keys)
+                r = shards[-1]
+                qr = q[:, :, r * sl:(r + 1) * sl]
+                call = lambda: ops.flash_attention(qr, k, v, q_offset=r * sl, **kw)  # noqa: E731
+                ms = graph_ms(call, 5)
+                pms = cuda_ms(lambda: ref.mha_ref(qr, k, v, q_offset=r * sl, **kw), 2,
+                              warmup=1)
+                qpos = r * sl + torch.arange(sl, device=dev)[:, None]
+                kpos = torch.arange(s, device=dev)[None, :]
+                mask = kpos <= qpos
+                if kw.get("window"):
+                    mask &= kpos > qpos - kw["window"]
+                lib = graph_ms(lambda: F.scaled_dot_product_attention(
+                    qr, k, v, attn_mask=mask, enable_gqa=True), 5)
+                pairs = int(mask.sum())
+                nbytes = b * (2 * h * sl * d + 2 * hkv * s * d) * 2
+                flops = b * 4 * d * h * pairs
+                bd = bound(nbytes, flops, BF16_TC_FLOP_PER_S)
+                err = bf16_err(call(), ref.mha_ref(qr, k, v, q_offset=r * sl, **kw))[0]
+                print(f"[timing] flash_attention offset shard [{b},{h},{sl},{d}] at "
+                      f"q_offset {r * sl} over [{b},{hkv},{s},{d}] bf16 {kw or 'causal'} "
+                      f"({pairs} open pairs, {flops / 1e9:.1f} GFLOP): kernel {ms:.4f} ms "
+                      f"(graph replays), plain {pms:.4f} ms, library (SDPA, boolean "
+                      f"mask) {lib:.4f} ms, bound {bd[0]:.4f} ms ({bd[1]})")
+                OFFSET_ROWS.append(dict(shape=[b, h, hkv, sl, s, d], q_offset=r * sl,
+                                        path="sharding", ms=ms, plain_ms=pms,
+                                        library_ms=lib, bound_ms=bd[0],
+                                        bound_by=bd[1], max_abs_err=err))
+                del mask
+            del q, k, v
+            torch.cuda.empty_cache()
+    print(f"[sharding] flash_attention with q_offset matches mha_ref(q_offset) at "
+          f"{n} query shards (gemma3-4b's and whisper-base's prefill_32k over 16 "
+          f"model ranks, window 1024 among them): f32 rel {worst[torch.float32]:.2e} "
+          f"(limit {ATTN_RTOL:g}), bf16 {worst[torch.bfloat16]:.2f} ulps (limit "
+          f"{BF16_ULPS})")
+    got = flash_digests(dev, lambda q, k, v, kw: ops.flash_attention(q, k, v, q_offset=0, **kw))
+    print(f"[sharding] flash_attention at q_offset 0, output digests {got}")
+    expect(got == PRE_OFFSET_DIGESTS, f"flash_attention at q_offset 0 differs from the "
+           f"earlier kernel: {got} against {PRE_OFFSET_DIGESTS}")
+    print(f"[sharding] ... bit for bit those of the earlier kernel at {len(PRE_OFFSET_CASES)} "
+          f"cases, f32 and bf16 (both instances)")
+
+
+def sharded_train(dev) -> dict:
+    """(b) of phase sharding: the plain step, then the DTensor step of the
+    same state and batch under a one-rank process group (NCCL on the card,
+    gloo when rehearsed on the CPU); launches gated as in phase train."""
+    import dataclasses
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.tensor import distribute_tensor
+
+    from repro_torch import configs
+    from repro_torch.data import TokenStream
+    from repro_torch.kernels.flash_attention import ops as flash_ops
+    from repro_torch.launch import mesh as tmesh
+    from repro_torch.launch import sharding as shr
+    from repro_torch.launch import train
+    from repro_torch.models import model
+    from repro_torch.optim import AdamW
+    from repro_torch.optim.adamw import AdamState
+
+    c = TRAIN
+    cfg = dataclasses.replace(configs.get_config(c["arch"]), fsdp=True, zero1=True,
+                              sp_attn=True)
+    opt = AdamW(lr=c["lr"], weight_decay=c["weight_decay"], grad_clip=c["clip"])
+    batch = TokenStream(cfg.vocab_size, c["batch"], c["seq"], seed=c["seed"]).next_batch()
+    state = train.init_state(cfg, c["seed"], opt, dev)
+    state, m = train.make_train_step(cfg, opt)(state, train.batch_to(batch, dev))
+    want_loss, want = m["loss"], state.params
+    del state, m
+    torch.cuda.empty_cache()
+
+    store = tempfile.TemporaryDirectory(prefix="chip_smoke_sharding_")
+    dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
+                            init_method=f"file://{store.name}/pg", world_size=1, rank=0)
+    try:
+        mesh = tmesh.make_host_mesh(1, 1, device_type=dev.type)
+        plain = train.init_state(cfg, c["seed"], opt, dev)
+        params = shr.distribute(plain.params, mesh,
+                                shr.param_shardings(plain.params, mesh, cfg))
+        o = shr.opt_shardings(plain.params, mesh, cfg)
+        mu = shr.distribute(plain.opt_state.mu, mesh, o)
+        nu = shr.distribute(plain.opt_state.nu, mesh, o)
+        del plain
+        bp = shr.placements(shr.batch_spec(mesh, c["batch"], 2), mesh)
+        dbatch = {k: distribute_tensor(v, mesh, bp)
+                  for k, v in train.batch_to(batch, dev).items()}
+        step = train.make_train_step(cfg, opt)
+        if dev.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(dev)
+        shr.set_activation_mesh(mesh)
+        try:
+            reset_counts()
+            sync(dev)
+            t0 = time.perf_counter()
+            new, m = step(train.TrainState(params, AdamState(0, mu, nu), 0), dbatch)
+            sync(dev)
+            first_s = time.perf_counter() - t0
+            counts = counts_now()
+            loss = m["loss"].full_tensor()
+            got = shr.to_full(new.params)
+            worst = rel_err(loss, want_loss)[1]
+            equal = bool(torch.equal(loss, want_loss))
+            for a, b in zip(model.tree_leaves(got), model.tree_leaves(want)):
+                worst = max(worst, rel_err(a, b)[1])
+                equal = equal and bool(torch.equal(a, b))
+            del got
+            sync(dev)
+            t0 = time.perf_counter()
+            step(new, dbatch)
+            sync(dev)
+            second_s = time.perf_counter() - t0
+        finally:
+            shr.set_activation_mesh(None)
+        peak = torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+    finally:
+        dist.destroy_process_group()
+        store.cleanup()
+    want_flash, want_norm = lm_launches(cfg, "train")
+    tc = flash_ops.TENSOR_CORE
+    gate_counts("sharding", counts, ("flash_attention", tc, "rmsnorm"))
+    expect(counts["flash_attention"] == want_flash and counts[tc] == want_flash
+           and counts["rmsnorm"] == want_norm,
+           f"sharded train step launched {counts}; expected {want_flash} flash (all "
+           f"tensor-core) and {want_norm} rmsnorm")
+    expect(worst <= SHARD["rtol"], f"sharded train step vs plain: rel {worst:.2e}")
+    print(f"[sharding] {cfg.name} at full width and depth, fsdp + ZeRO-1 + sp_attn, "
+          f"params/μ/ν as DTensors on a 1×1 {'NCCL' if dev.type == 'cuda' else 'gloo'} "
+          f"mesh: loss {float(loss):.6f} (plain {float(want_loss):.6f}); loss and params "
+          f"{'bit-equal' if equal else f'within {worst:.2e} of scale'} of the plain "
+          f"step (limit {SHARD['rtol']:g}); launches flash {counts['flash_attention']} "
+          f"(tensor-core {counts[tc]}), rmsnorm {counts['rmsnorm']}; step ms first "
+          f"{first_s * 1e3:.1f}, second {second_s * 1e3:.1f}; max_memory_allocated "
+          f"{mib(peak)} MiB")
+    return dict(counts=counts, first_s=first_s, second_s=second_s, peak=peak,
+                worst=worst, equal=equal)
+
+
+def sharded_dryrun() -> dict:
+    """(c) of phase sharding: SHARD's arch at its four shapes and the GRF-GP
+    cell, plain and compact, on both production meshes, records under
+    chiprun_out/dryrun/."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+    from repro_torch.models.config import SHAPES
+
+    out = {}
+    t0 = time.perf_counter()
+    try:
+        for mesh_name, multi in dryrun.MESHES.items():
+            mesh = dryrun.production_mesh(multi)
+            out_dir = str(ROOT / "chiprun_out" / "dryrun" / mesh_name)
+            recs = [dryrun.run_cell(SHARD["dry_arch"], shape, mesh, mesh_name, out_dir)
+                    for shape in SHAPES]
+            recs += [dryrun.run_gp_cell(mesh, mesh_name, out_dir, compact=compact)
+                     for compact in (False, True)]
+            for rec in recs:
+                label = (f"{rec['arch']}/{rec['shape']}"
+                         + (" compact" if rec.get("compact") else ""))
+                print(f"[sharding] dry run [{mesh_name}] {label}: {dryrun.describe(rec)}")
+                expect(rec["status"] == "ok", f"dry run {mesh_name} {label}: {rec.get('error')}")
+                expect(rec["roofline"]["flops_per_device"] > 0,
+                       f"dry run {mesh_name} {label}: no FLOPs")
+                out[(mesh_name, label)] = rec["roofline"]
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+    print(f"[sharding] dry run of {len(out)} records in {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def phase_sharding(dev) -> dict:
+    """(a) the q_offset kernel, (b) the DTensor train step, (c) the dry run."""
+    check_offset_cases(dev)
+    res = sharded_train(dev)
+    res["dryrun"] = sharded_dryrun()
+    return res
+
+
 def phase_timing(dev, results: dict) -> list[dict]:
     import torch
 
@@ -4576,8 +4877,8 @@ def phase_timing(dev, results: dict) -> list[dict]:
     seed = main["out"]["seed"]
     # Launches of each kernel summed over the paths' runs (main, fit,
     # serving, the two BO loops, solvers, lm, train, lm-archs, baselines,
-    # svgp, jlt, obs and the parts of resilience and fleet), each counted
-    # from 0.
+    # svgp, jlt, obs, the parts of resilience and fleet, and the sharded
+    # train step), each counted from 0.
     path_counts = [main["counts"], results["fit"]["counts"],
                    results["serving"]["counts"],
                    *(results["bo"][e]["counts"] for e in ("incremental",
@@ -4585,7 +4886,8 @@ def phase_timing(dev, results: dict) -> list[dict]:
                    results["solvers"]["counts"], results["lm"]["counts"],
                    results["train"]["counts"], results["lm-archs"]["counts"],
                    *(results[p]["counts"] for p in ("baselines", "svgp", "jlt",
-                                                     "obs", "resilience", "fleet"))]
+                                                     "obs", "resilience", "fleet",
+                                                     "sharding"))]
     counts = {k: sum(c[k] for c in path_counts) for k in path_counts[0]}
     nodes = torch.arange(n, dtype=torch.int32, device=dev)
     wkw = dict(n_walkers=wcfg.n_walkers, p_halt=wcfg.p_halt, l_max=wcfg.l_max)
@@ -5183,7 +5485,7 @@ def timing_flash(dev, launches: int, per_step: int) -> dict:
                 max_abs_err=max(x["max_abs_err"] for x in shapes),
                 ms=head["ms"], plain_ms=head["plain_ms"],
                 bound_ms=head["bound_ms"], bound_by=head["bound_by"],
-                library_ms=head["library_ms"], shapes=shapes)
+                library_ms=head["library_ms"], shapes=shapes + OFFSET_ROWS)
 
 
 def host_us(fn, calls: int = 1000) -> float:
@@ -5302,6 +5604,7 @@ def main() -> int:
         ("obs", lambda: phase_obs(dev)),
         ("resilience", lambda: phase_resilience(dev)),
         ("fleet", lambda: phase_fleet(dev)),
+        ("sharding", lambda: phase_sharding(dev)),
     ]
     results = {}
     for name, fn in phases:

@@ -28,10 +28,13 @@ def feature_values(trace: WalkTrace, f: torch.Tensor) -> torch.Tensor:
     ``index_select`` rather than ``f[lens]``: its backward is an atomic
     ``index_add_``, while advanced indexing backpropagates through a
     sort-based accumulate that serialises on the l_max+1 distinct lengths
-    (most of the fit's device time on the card; PERF.md)."""
+    (most of the fit's device time on the card; PERF.md).  A compact trace
+    (int8 lens, bf16 loads: the dry run's GRF-GP cell) is widened here."""
     lens = trace.lens
-    return trace.loads.to(f.dtype) * torch.index_select(
-        f, 0, lens.reshape(-1)).reshape(lens.shape)
+    idx = lens.reshape(-1)
+    if idx.dtype not in (torch.int32, torch.int64):
+        idx = idx.to(torch.int32)
+    return trace.loads.to(f.dtype) * torch.index_select(f, 0, idx).reshape(lens.shape)
 
 
 def phi_matvec(trace: WalkTrace, f: torch.Tensor, u: torch.Tensor) -> torch.Tensor:

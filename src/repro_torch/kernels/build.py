@@ -19,6 +19,7 @@ import hashlib
 import os
 import re
 import shutil
+import sys
 import subprocess
 from pathlib import Path
 
@@ -173,16 +174,18 @@ def ptxas_functions(name: str) -> list[dict]:
 
 def on_cuda(kernel: str, *tensors) -> bool:
     """True if every tensor lies on one CUDA device, False if all are on the
-    CPU; raises on anything else.  This is the whole dispatch rule of the
-    port: a CPU tensor goes to the plain version, a CUDA tensor to the
-    kernel, and nothing sends a CUDA tensor to the plain version."""
+    CPU (or all on ``meta``: shapes without storage, which the dry run
+    traces through the plain versions); raises on anything else.  This is
+    the whole dispatch rule of the port: a CPU tensor goes to the plain
+    version, a CUDA tensor to the kernel, and nothing sends a CUDA tensor to
+    the plain version."""
     first = tensors[0].get_device()   # -1 off the card: no Device objects
     if first >= 0 and all(t.get_device() == first for t in tensors[1:]):
         return True
     devices = {t.device for t in tensors}
     if len(devices) == 1:
         (dev,) = devices
-        if dev.type == "cpu":
+        if dev.type in ("cpu", "meta"):
             return False
         if dev.type == "cuda":
             return True
@@ -190,6 +193,26 @@ def on_cuda(kernel: str, *tensors) -> bool:
         f"{kernel}: all tensors must lie on the CPU or on one CUDA device, "
         f"got {sorted(str(d) for d in devices)}"
     )
+
+
+def is_dtensor(t) -> bool:
+    """True for a ``torch.distributed`` DTensor (a sharded LM tensor, which
+    the LM kernels' wrappers run shard by shard).  Imports nothing when
+    ``torch.distributed.tensor`` has not been loaded: then no tensor can be
+    one."""
+    mod = sys.modules.get("torch.distributed.tensor")
+    return mod is not None and isinstance(t, mod.DTensor)
+
+
+def grad_placements(own: tuple, lead: tuple) -> tuple:
+    """The placements of the gradient of a ``local_map`` input placed
+    ``own``, beside the input placed ``lead`` that splits the work: on a
+    mesh dim where ``lead`` is sharded and this input replicated, each
+    rank's local gradient is a partial sum."""
+    from torch.distributed.tensor import Partial
+
+    return tuple(Partial() if o.is_replicate() and ld.is_shard() else o
+                 for o, ld in zip(own, lead))
 
 
 def check(kernel: str, t, name: str, dtypes, ndims) -> None:

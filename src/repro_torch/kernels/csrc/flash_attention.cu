@@ -6,7 +6,10 @@
 //   q [B, H, Sq, D], k/v [B, Hkv, Skv, D], o [B, H, Sq, D]; float32 or
 //   bfloat16 in (all three alike), o in the input type.
 // Each tensor is addressed through its own batch, head and sequence strides;
-// the head dim must be contiguous.
+// the head dim must be contiguous.  Query row r sits at global position
+// r + q_offset (a shard of a sequence-parallel q): the masks and the tile
+// ranges use that position, and at q_offset = 0 every instruction is the one
+// it was before the argument existed.
 //
 // Replaces the TPU kernel src/repro/kernels/flash_attention/flash_attention.py:104
 // `flash_attention` (pallas_call at :150, body `_flash_kernel` :32).  Plain
@@ -121,7 +124,7 @@ __global__ void __launch_bounds__(THREADS)
     flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
               const T* __restrict__ v, T* __restrict__ o, int nbh, int h,
               int hkv, int sq, int skv, int d, Strides st, int causal,
-              int window, float softcap, float sm_scale) {
+              int qoff, int window, float softcap, float sm_scale) {
   constexpr int DP = 16 * NC;
   constexpr int BQ = GROUPS * RPT;
   extern __shared__ float4 smem4[];
@@ -165,9 +168,10 @@ __global__ void __launch_bounds__(THREADS)
     }
   }
 
-  // The KV range some row of this q tile may see.
-  const int i_lo = q0;
-  const int i_hi = min(q0 + BQ, sq) - 1;
+  // The KV range some row of this q tile may see; query row r sits at
+  // global position r + qoff.
+  const int i_lo = q0 + qoff;
+  const int i_hi = min(q0 + BQ, sq) - 1 + qoff;
   int k_begin = 0, k_end = skv;
   if (causal) k_end = min(skv, i_hi + 1);
   if (window > 0) k_begin = max(0, i_lo - window + 1);
@@ -214,7 +218,7 @@ __global__ void __launch_bounds__(THREADS)
           sv += __shfl_xor_sync(0xffffffffu, sv, 2);
           sv *= sm_scale;
           if (softcap > 0.0f) sv = softcap * tanhf(sv / softcap);
-          const int i = row[t];
+          const int i = row[t] + qoff;
           const bool ok = kp < skv && (!causal || kp <= i) &&
                           (window <= 0 || kp > i - window);
           s[t][u] = ok ? sv : NEG_INF;
@@ -296,8 +300,8 @@ static cudaError_t set_smem_once(int smem) {
 template <typename T, int NC>
 static int launch_nc(const void* q, const void* k, const void* v, void* o,
                      int b, int h, int hkv, int sq, int skv, int d,
-                     const Strides& st, int causal, int window, float softcap,
-                     float sm_scale, cudaStream_t stream) {
+                     const Strides& st, int causal, int qoff, int window,
+                     float softcap, float sm_scale, cudaStream_t stream) {
   constexpr int RPT = NC <= 8 ? 2 : 1;
   constexpr int BQ = GROUPS * RPT;
   const int smem = 2 * BK * 16 * NC * (int)sizeof(float);
@@ -309,7 +313,7 @@ static int launch_nc(const void* q, const void* k, const void* v, void* o,
                   (unsigned int)((nbh + gy - 1) / gy));
   flash_fwd<T, NC, RPT><<<grid, THREADS, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (T*)o, nbh, h, hkv, sq, skv, d,
-      st, causal, window, softcap, sm_scale);
+      st, causal, qoff, window, softcap, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -317,12 +321,12 @@ static int launch_nc(const void* q, const void* k, const void* v, void* o,
 template <typename T>
 static int launch_t(int nc, const void* q, const void* k, const void* v,
                     void* o, int b, int h, int hkv, int sq, int skv, int d,
-                    const Strides& st, int causal, int window, float softcap,
-                    float sm_scale, cudaStream_t s) {
+                    const Strides& st, int causal, int qoff, int window,
+                    float softcap, float sm_scale, cudaStream_t s) {
 #define FLASH_CASE(N)                                                        \
   if (nc <= N)                                                               \
     return launch_nc<T, N>(q, k, v, o, b, h, hkv, sq, skv, d, st, causal,    \
-                           window, softcap, sm_scale, s);
+                           qoff, window, softcap, sm_scale, s);
   FLASH_CASE(1)
   FLASH_CASE(2)
   FLASH_CASE(4)
@@ -708,7 +712,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
                  const __grid_constant__ CUtensorMap tmk,
                  const __grid_constant__ CUtensorMap tmv, bf16* __restrict__ o,
                  int h, int hkv, int sq, int skv, int d, Strides st, int causal,
-                 int window, float softcap, float sm_scale) {
+                 int qoff, int window, float softcap, float sm_scale) {
   constexpr int BQ = 64 * NWG;          // query rows per block
   constexpr int NTH = 128 * NWG + 32;   // consumers and the producer warp
   constexpr int NT = TK / 8;            // n8 blocks of S
@@ -742,11 +746,12 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
   const int dch = d >> 3;
   const int q0 = qt * BQ;
 
-  // The KV tiles some row of this block may see.
-  const int i_hi = min(q0 + BQ, sq) - 1;
+  // The KV tiles some row of this block may see; query row r sits at
+  // global position r + qoff.
+  const int i_hi = min(q0 + BQ, sq) - 1 + qoff;
   int k_begin = 0, k_end = skv;
   if (causal) k_end = min(skv, i_hi + 1);
-  if (window > 0) k_begin = max(0, q0 - window + 1);
+  if (window > 0) k_begin = max(0, q0 + qoff - window + 1);
   const int t0 = k_begin / TK;
   const int n_tiles = k_end > t0 * TK ? (k_end - t0 * TK + TK - 1) / TK : 0;
 
@@ -821,8 +826,8 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
     mbar_wait(full + 8 * stage, (it / STAGES) & 1);
     const int k0 = (t0 + it) * TK;
     // A tile masked for every row of this warpgroup adds nothing: skip it.
-    const bool active = g_lo < sq && !(causal && k0 > g_hi) &&
-                        !(window > 0 && k0 + TK - 1 <= g_lo - window);
+    const bool active = g_lo < sq && !(causal && k0 > g_hi + qoff) &&
+                        !(window > 0 && k0 + TK - 1 <= g_lo + qoff - window);
     if (active) {
       const uint64_t dk = desc(ks + stage * TILE_KV, TK * 16, 128);
       const uint64_t dv = desc(vs + stage * TILE_KV, 128, TK * 16);
@@ -846,8 +851,9 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
       // neither (tanhf is some twenty instructions).  A masked logit is
       // -1e30 before any scale: its p is 2^(-1e30·e_mul − m) = 0 for every
       // head dim (e_mul ≥ log2(e)/√320).
-      const bool whole = k0 + TK <= skv && (!causal || k0 + TK - 1 <= r_lo) &&
-                         (window <= 0 || k0 > r_hi - window);
+      const bool whole = k0 + TK <= skv &&
+                         (!causal || k0 + TK - 1 <= r_lo + qoff) &&
+                         (window <= 0 || k0 > r_hi + qoff - window);
       if (capped) {
 #pragma unroll
         for (int i = 0; i < TK / 2; ++i) s[i] = cap_mul * tanhf(s[i] * s_mul);
@@ -858,7 +864,7 @@ __global__ void __launch_bounds__(128 * NWG + 32, 1)
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int kp = k0 + 8 * n + 2 * t4 + (e & 1);
-            const int i = row0 + (e < 2 ? 0 : 8);
+            const int i = row0 + (e < 2 ? 0 : 8) + qoff;
             const bool ok = kp < skv && (!causal || kp <= i) &&
                             (window <= 0 || kp > i - window);
             if (!ok) s[4 * n + e] = NEG_INF;
@@ -989,8 +995,8 @@ static int kv_map(CUtensorMap* map, const void* base, int b, int hkv, int s,
 template <int DP, int STAGES, int NWG>
 static int launch(const void* q, const void* k, const void* v, void* o, int b,
                   int h, int hkv, int sq, int skv, int d, const Strides& st,
-                  int causal, int window, float softcap, float sm_scale,
-                  cudaStream_t stream) {
+                  int causal, int qoff, int window, float softcap,
+                  float sm_scale, cudaStream_t stream) {
   CUtensorMap tmk, tmv;
   int rc = kv_map(&tmk, k, b, hkv, skv, d, st.kb, st.kh, st.ks);
   if (rc == 0) rc = kv_map(&tmv, v, b, hkv, skv, d, st.vb, st.vh, st.vs);
@@ -1004,7 +1010,7 @@ static int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (blocks > 2147483647LL) return (int)cudaErrorInvalidValue;
   kern<<<(unsigned int)blocks, 128 * NWG + 32, smem, stream>>>(
       (const bf16*)q, tmk, tmv, (bf16*)o, h, hkv, sq, skv, d, st, causal,
-      window, softcap, sm_scale);
+      qoff, window, softcap, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -1012,12 +1018,12 @@ static int launch(const void* q, const void* k, const void* v, void* o, int b,
 // with the deepest K/V ring that fits beside Q in shared memory.
 static int dispatch(const void* q, const void* k, const void* v, void* o,
                     int b, int h, int hkv, int sq, int skv, int d,
-                    const Strides& st, int causal, int window, float softcap,
-                    float sm_scale, cudaStream_t s) {
+                    const Strides& st, int causal, int qoff, int window,
+                    float softcap, float sm_scale, cudaStream_t s) {
 #define TC_CASE(DP, STAGES, NWG)                                        \
   if (d <= DP)                                                          \
     return launch<DP, STAGES, NWG>(q, k, v, o, b, h, hkv, sq, skv, d, st, \
-                                   causal, window, softcap, sm_scale, s);
+                                   causal, qoff, window, softcap, sm_scale, s);
   TC_CASE(16, 4, 2)
   TC_CASE(32, 4, 2)
   TC_CASE(64, 4, 2)
@@ -1040,18 +1046,21 @@ const char* repro_cuda_error_string(int code) {
 // The largest head dim the CUDA-core instance takes.
 int flash_attention_max_head_dim(void) { return 16 * MAX_NC; }
 
-// CUDA-core instance.  window ≤ 0: no window; softcap ≤ 0: no softcap;
-// bf16: 1 for bfloat16 tensors, 0 for float32.  Strides in elements.
+// CUDA-core instance.  q_offset: the global position of q's row 0 (≥ 0),
+// which the causal and window masks use; window ≤ 0: no window; softcap ≤ 0:
+// no softcap; bf16: 1 for bfloat16 tensors, 0 for float32.  Strides in
+// elements.
 int flash_attention_launch(const void* q, const void* k, const void* v,
                            void* o, int b, int h, int hkv, int sq, int skv,
                            int d, long long qsb, long long qsh, long long qss,
                            long long ksb, long long ksh, long long kss,
                            long long vsb, long long vsh, long long vss,
                            long long osb, long long osh, long long oss,
-                           int causal, int window, float softcap,
+                           int causal, int q_offset, int window, float softcap,
                            float sm_scale, int bf16, void* stream) {
   if (b == 0 || h == 0 || sq == 0) return (int)cudaSuccess;
   if (b < 0 || h < 1 || hkv < 1 || h % hkv != 0 || sq < 0 || skv < 0 ||
+      q_offset < 0 ||
       d < 1 || d > 16 * MAX_NC || (long long)b * h > 2147483647LL)
     return (int)cudaErrorInvalidValue;
   const Strides st{qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
@@ -1059,9 +1068,10 @@ int flash_attention_launch(const void* q, const void* k, const void* v,
   cudaStream_t s = (cudaStream_t)stream;
   if (bf16)
     return launch_t<__nv_bfloat16>(nc, q, k, v, o, b, h, hkv, sq, skv, d, st,
-                                   causal, window, softcap, sm_scale, s);
+                                   causal, q_offset, window, softcap, sm_scale,
+                                   s);
   return launch_t<float>(nc, q, k, v, o, b, h, hkv, sq, skv, d, st, causal,
-                         window, softcap, sm_scale, s);
+                         q_offset, window, softcap, sm_scale, s);
 }
 
 // Tensor-core instance, bfloat16 only: d a multiple of 8 up to 256, every
@@ -1073,11 +1083,12 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
                               long long qss, long long ksb, long long ksh,
                               long long kss, long long vsb, long long vsh,
                               long long vss, long long osb, long long osh,
-                              long long oss, int causal, int window,
-                              float softcap, float sm_scale, void* stream) {
+                              long long oss, int causal, int q_offset,
+                              int window, float softcap, float sm_scale,
+                              void* stream) {
   if (b == 0 || h == 0 || sq == 0) return (int)cudaSuccess;
   if (b < 0 || h < 1 || hkv < 1 || h % hkv != 0 || sq < 0 || skv < 0 ||
-      d < 8 || d > 256 || d % 8 != 0)
+      q_offset < 0 || d < 8 || d > 256 || d % 8 != 0)
     return (int)cudaErrorInvalidValue;
   const void* ptrs[4] = {q, k, v, o};
   for (const void* p : ptrs)
@@ -1091,8 +1102,8 @@ int flash_attention_tc_launch(const void* q, const void* k, const void* v,
   for (long long s : strides)
     if (s % 8 != 0) return (int)cudaErrorInvalidValue;
   const Strides st{qsb, qsh, qss, ksb, ksh, kss, vsb, vsh, vss, osb, osh, oss};
-  return tc::dispatch(q, k, v, o, b, h, hkv, sq, skv, d, st, causal, window,
-                      softcap, sm_scale, (cudaStream_t)stream);
+  return tc::dispatch(q, k, v, o, b, h, hkv, sq, skv, d, st, causal, q_offset,
+                      window, softcap, sm_scale, (cudaStream_t)stream);
 }
 
 }  // extern "C"

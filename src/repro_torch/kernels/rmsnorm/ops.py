@@ -14,6 +14,14 @@ backward recomputes ``rmsnorm_ref`` under ``torch.enable_grad()`` and takes
 port: its ``rms_norm`` is plain ``jnp``).  It saves only x and the scale;
 with nothing requiring grad :func:`launch` is called directly.
 
+Sharded inputs: a DTensor ``x`` (the LM under ``launch/sharding.py``'s
+placements) is normalised shard by shard through ``local_map``: x is first
+redistributed so that its last dim is whole on every rank (a placement
+that shards it, or a partial sum, becomes a replicate), the scale (a
+DTensor too) is replicated, and each rank runs :func:`apply` on its local
+rows — the kernel on the card, the plain version on the CPU.  The scale's
+gradient is a partial sum over the mesh dims that split x.
+
 A decode step calls this 49 times and is bound by host time, so the path on
 the card does no more than it must: no cast or copy of a scale that is
 already float32 and contiguous, no reshape of an x that is already 2-D and
@@ -41,11 +49,28 @@ _FN = []   # the bound entry point, once built
 
 def apply(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """y = x·rsqrt(mean(x²) + eps)·(1 + scale) over the last dim."""
+    if build.is_dtensor(x):
+        return _sharded(x, scale, eps)
     if not build.on_cuda("rmsnorm", x, scale):
         return rmsnorm_ref(x, scale, eps)
     if torch.is_grad_enabled() and (x.requires_grad or scale.requires_grad):
         return _RmsNormFn.apply(x, scale, eps)
     return launch(x, scale, eps)
+
+
+def _sharded(x, scale, eps: float):
+    from torch.distributed.tensor import Replicate
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = x.device_mesh
+    whole = tuple(Replicate() if p.is_partial() or (p.is_shard() and p.dim == x.dim() - 1)
+                  else p for p in x.placements)
+    rep = (Replicate(),) * mesh.ndim
+    x = x.redistribute(mesh, whole)
+    scale = scale.redistribute(mesh, rep)
+    return local_map(apply, out_placements=(whole,), device_mesh=mesh,
+                     in_grad_placements=(whole, build.grad_placements(rep, whole), None))(
+        x, scale, eps)
 
 
 class _RmsNormFn(torch.autograd.Function):

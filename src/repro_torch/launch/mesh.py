@@ -14,9 +14,13 @@ Nothing here starts a process group on its own: the caller runs
 init method, world size and rank (gloo on the CPU; NCCL on the card, where
 two ranks cannot share one device, so one card runs world size 1).
 :func:`spawn_ranks` does exactly that for a function run in ``n`` spawned
-processes, with a timeout that fails a hung collective.  The LM meshes
-(``make_production_mesh``, ``make_host_mesh``) belong to the LM's sharding
-and are not ported yet (ROADMAP Queue 1 #9c).
+processes, with a timeout that fails a hung collective.
+
+The LM's meshes are ``torch.distributed`` ``DeviceMesh``es with named
+dims, over the default process group: :func:`make_production_mesh` (the
+JAX package's shapes, so that the spec tables compare leaf by leaf) and
+:func:`make_host_mesh` (the ranks that exist).  The dry run supplies a fake
+group of 256 or 512 ranks to the production mesh.
 """
 from __future__ import annotations
 
@@ -25,6 +29,8 @@ import datetime
 import time
 
 import torch.distributed as dist
+
+from .sharding import data_axes  # noqa: F401  (JAX keeps it here)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +78,32 @@ def make_serving_mesh(n_shards: int | None = None) -> ServingMesh | None:
         return ServingMesh(dist.group.WORLD, n, rank)
     group = dist.new_group(list(range(n)))
     return ServingMesh(group, n, rank) if rank < n else None
+
+
+def make_production_mesh(*, multi_pod: bool = False, device_type: str = "cuda"):
+    """16×16 ranks per pod; 2 pods when ``multi_pod``.
+
+    Axes: ``pod`` (inter-pod DP), ``data`` (intra-pod DP / FSDP / ZeRO-1 /
+    sequence-parallel KV), ``model`` (TP / EP).  The default process group
+    must have 256 (512) ranks.  On H100s, whose NVLink domain is an 8-GPU
+    node, a 16-wide ``model`` axis spans two nodes, and so does ``data``:
+    their collectives cross the nodes' network."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return init_device_mesh(device_type, shape, mesh_dim_names=axes)
+
+
+def make_host_mesh(n_data: int | None = None, n_model: int = 1,
+                   device_type: str = "cuda"):
+    """A (data, model) mesh over the ranks of the default process group."""
+    from torch.distributed.device_mesh import init_device_mesh
+
+    n = dist.get_world_size()
+    n_data = n_data or (n // n_model)
+    return init_device_mesh(device_type, (n_data, n_model),
+                            mesh_dim_names=("data", "model"))
 
 
 def _rank_main(rank, fn, n, backend, init_method, timeout_s, args):

@@ -18,7 +18,14 @@ package writes resumes in the other), the data stream's cursor restored,
 an asynchronous checkpoint every ``ckpt_every`` steps and at the last one.
 Kill it at any step and rerun it: it continues where the checkpoint left
 off.  The train state's leaves stay float32 or integer (numpy, and so the
-checkpoint format, has no bfloat16); activations follow ``cfg.dtype``."""
+checkpoint format, has no bfloat16); activations follow ``cfg.dtype``.
+
+Sharded: the step takes a state whose leaves are DTensors (params placed
+by ``sharding.param_shardings``, μ/ν by ``opt_shardings``) and a batch
+placed by ``batch_spec``; DTensor then inserts the FSDP gathers, gradient
+reductions and ZeRO-1 slices, and the step runs under ``sharding.spmd``
+(plain tensors the model makes count as replicated).  The caller registers
+the activation mesh (``sharding.set_activation_mesh``) for ``cfg.sp_attn``."""
 from __future__ import annotations
 
 from typing import Any, NamedTuple
@@ -32,6 +39,7 @@ from ..data import TokenStream
 from ..models import model
 from ..models.config import ModelConfig
 from ..optim.adamw import AdamState, AdamW, global_norm
+from .sharding import spmd
 
 
 class TrainState(NamedTuple):
@@ -66,6 +74,10 @@ def loss_and_grads(params, cfg: ModelConfig, batch: dict):
 
 def make_train_step(cfg: ModelConfig, opt: AdamW, microbatches: int = 1):
     def train_step(state: TrainState, batch: dict):
+        with spmd(state.params):
+            return _step(state, batch)
+
+    def _step(state: TrainState, batch: dict):
         if microbatches == 1:
             loss, metrics, grads = loss_and_grads(state.params, cfg, batch)
         else:

@@ -8,6 +8,8 @@ through an autograd Function whose backward runs the plain version
 the JAX package leaves them to XLA."""
 from __future__ import annotations
 
+import types
+
 import torch
 import torch.nn.functional as F
 
@@ -18,6 +20,62 @@ def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.T
     """x·rsqrt(mean(x²) + eps)·(1 + scale) over the last dim, f32 math, x's
     dtype out."""
     return rmsnorm_ops.apply(x, scale, eps)
+
+
+def on_shards(fn, x: torch.Tensor, *rest, whole: tuple = ()):
+    """``fn(x, *rest)`` — on each rank's local shards when ``x`` is a DTensor.
+
+    The DTensors among ``x`` and ``rest`` are first placed as ``x`` is,
+    with the tensor dims in ``whole`` made whole (replicated); ``fn``'s
+    tensor outputs come back as DTensors with those placements.  For code
+    whose shapes DTensor cannot follow: a cache built by index writes."""
+    from ..kernels import build
+
+    if not build.is_dtensor(x):
+        return fn(x, *rest)
+    from torch.distributed.tensor import DTensor, Replicate
+    from torch.utils import _pytree as pytree
+
+    mesh = x.device_mesh
+    pl = tuple(Replicate() if p.is_partial() or any(p.is_shard(d) for d in whole)
+               else p for p in x.placements)
+    args = [a.redistribute(mesh, pl).to_local() if build.is_dtensor(a) else a
+            for a in (x, *rest)]
+    return pytree.tree_map_only(
+        torch.Tensor, lambda t: DTensor.from_local(t, mesh, pl, run_check=False),
+        fn(*args))
+
+
+def residual(x: torch.Tensor) -> torch.Tensor:
+    """The residual stream's layout: a DTensor keeps its batch split over
+    the data axes and nothing else (a pending partial sum is reduced, a
+    split sequence or feature dim gathered).  DTensor would otherwise leave
+    a reduce-scatter's split sequence in the stream, and a matmul of [B, S,
+    D] flattens (B, S), which DTensor does only when S is whole.  The same
+    holds for its gradient.  Plain tensors pass through."""
+    from ..kernels import build
+
+    return _Residual.apply(x) if build.is_dtensor(x) else x
+
+
+def _batch_only(x):
+    from torch.distributed.tensor import Replicate
+
+    pl = tuple(p if p.is_shard(0) else Replicate() for p in x.placements)
+    return x if pl == tuple(x.placements) else x.redistribute(x.device_mesh, pl)
+
+
+class _Residual(torch.autograd.Function):
+    """:func:`residual` in value and in gradient (the backward's reductions
+    would otherwise leave the gradient's sequence split)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return _batch_only(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _batch_only(g)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
@@ -45,6 +103,8 @@ def swiglu(x, w_gate, w_up, w_down):
 
 def _trunc_normal(gen: torch.Generator, shape) -> torch.Tensor:
     t = torch.empty(tuple(shape), dtype=torch.float32, device=gen.device)
+    if t.is_meta:   # shapes only: nothing to draw
+        return t
     return torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
 
 
@@ -61,6 +121,9 @@ def embed_init(gen: torch.Generator, vocab: int, d: int) -> torch.Tensor:
     return _trunc_normal(gen, (vocab, d)).mul_(d**-0.5)
 
 
+_META_KEY = types.SimpleNamespace(device=torch.device("meta"))
+
+
 class KeyGen:
     """Deterministic generator dispenser for parameter init.
 
@@ -68,7 +131,9 @@ class KeyGen:
     from (seed, n), as the JAX KeyGen folds n into its key, so a leaf's
     values do not depend on the order of other draws.  The two packages draw
     different numbers from one seed: the tests carry the JAX parameters
-    across instead (``interop.model_params_from_numpy``)."""
+    across instead (``interop.model_params_from_numpy``).  On the ``meta``
+    device (shapes without storage, as the dry run builds them) it hands
+    out a stand-in that names the device and draws nothing."""
 
     def __init__(self, seed: int, device):
         self._seed = int(seed)
@@ -77,5 +142,7 @@ class KeyGen:
 
     def __call__(self) -> torch.Generator:
         self._n += 1
+        if self.device.type == "meta":
+            return _META_KEY
         gen = torch.Generator(device=self.device)
         return gen.manual_seed(self._seed * 1_000_003 + self._n)

@@ -15,14 +15,17 @@ the JAX package: K's head dim (hd + rd = 192 at full width) differs from
 V's (hd = 128), which the shared flash kernel does not take.  Its norms go
 through the rmsnorm kernel (``q_norm`` over q_lora_rank, ``kv_norm`` over
 kv_lora_rank).  :func:`mla_decode` writes the new latent into the cache in
-place and returns it."""
+place and returns it.  ``cfg.sp_attn`` constrains the full-sequence
+block's activations to head parallelism, as in the JAX package."""
 from __future__ import annotations
 
 import torch
 
+from ..kernels import build
+from ..launch.sharding import constrain
 from .attention import _out_proj, _proj
 from .config import ModelConfig
-from .layers import KeyGen, dense_init, rms_norm, rope
+from .layers import KeyGen, dense_init, on_shards, rms_norm, rope
 
 
 def init_mla(kg: KeyGen, cfg: ModelConfig) -> dict:
@@ -67,6 +70,34 @@ def _latents(p, xn, positions, cfg):
     return c_kv, k_rope
 
 
+def by_heads(fn, *heads, batch=(), weights=()):
+    """``fn(*heads, *batch, *weights)`` — on each rank's local shards when
+    the first of ``heads`` is a DTensor.  ``heads`` are [B, H, ...] tensors,
+    split as the first one is over its batch and heads (anything else of it
+    replicated); ``batch`` are [B, ...] tensors shared by the heads, split
+    over the batch only; ``weights`` are [·, H, ...] and split over the
+    heads only.  The output is placed as ``heads``; a shared input's
+    gradient is a partial sum over the mesh dims that split the heads.
+    (DTensor's einsum flattens (batch, heads), which it does only when no
+    dim but the first is split.)"""
+    lead = heads[0]
+    if not build.is_dtensor(lead):
+        return fn(*heads, *batch, *weights)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = lead.device_mesh
+    hp = tuple(p if p.is_shard(0) or p.is_shard(1) else Replicate()
+               for p in lead.placements)
+    bp = tuple(p if p.is_shard(0) else Replicate() for p in hp)
+    wp = tuple(Shard(1) if p.is_shard(1) else Replicate() for p in hp)
+    pls = [hp] * len(heads) + [bp] * len(batch) + [wp] * len(weights)
+    args = [t.redistribute(mesh, pl) for t, pl in zip((*heads, *batch, *weights), pls)]
+    run = local_map(fn, out_placements=(hp,), device_mesh=mesh,
+                    in_grad_placements=tuple(build.grad_placements(pl, hp) for pl in pls))
+    return run(*args)
+
+
 def _softmax(s: torch.Tensor, valid: torch.Tensor, dtype) -> torch.Tensor:
     return torch.softmax(s.masked_fill(~valid, -1e30), dim=-1).to(dtype)
 
@@ -79,13 +110,26 @@ def mla_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, positions: torch.Ten
     c_kv, k_rope = _latents(p, xn, positions, cfg)
     k_nope = _proj(c_kv, p["wk_b"])
     v = _proj(c_kv, p["wv_b"])
-    s = (torch.einsum("bhqk,bhsk->bhqs", q_nope, k_nope)
-         + torch.einsum("bhqk,bsk->bhqs", q_rope, k_rope)
-         ).to(torch.float32) * _scale(cfg, x.device)
-    sq = x.shape[1]
-    idx = torch.arange(sq, device=x.device)
-    w = _softmax(s, (idx[:, None] >= idx[None, :])[None, None], dt)
-    o = torch.einsum("bhqs,bhsk->bhqk", w, v)
+    if cfg.sp_attn:
+        # Megatron-style head parallelism: without these constraints the
+        # whole MLA block would follow the replicated latents.
+        q_nope = constrain(q_nope, "batch", "model", None, None)
+        q_rope = constrain(q_rope, "batch", "model", None, None)
+        k_nope = constrain(k_nope, "batch", "model", None, None)
+        v = constrain(v, "batch", "model", None, None)
+        c_kv = constrain(c_kv, "batch", None, None)
+        k_rope = constrain(k_rope, "batch", None, None)
+    def attend(q_nope, q_rope, k_nope, v, k_rope):
+        s = (torch.einsum("bhqk,bhsk->bhqs", q_nope, k_nope)
+             + torch.einsum("bhqk,bsk->bhqs", q_rope, k_rope)
+             ).to(torch.float32) * _scale(cfg, q_nope.device)
+        idx = torch.arange(q_nope.shape[2], device=q_nope.device)
+        w = _softmax(s, (idx[:, None] >= idx[None, :])[None, None], dt)
+        return torch.einsum("bhqs,bhsk->bhqk", w, v)
+
+    o = by_heads(attend, q_nope, q_rope, k_nope, v, batch=(k_rope,))
+    if cfg.sp_attn:
+        o = constrain(o, "batch", "model", None, None)
     return x + _out_proj(o, p["wo"], dt)
 
 
@@ -106,10 +150,14 @@ def mla_prefill(p, x, cfg, positions, max_len):
     out = mla_forward(p, x, cfg, positions)
     xn = rms_norm(x, p["norm"])
     c_kv, k_rope = _latents(p, xn, positions, cfg)
-    cache = mla_init_cache(cfg, x.shape[0], max_len, x.device)
-    cache["c_kv"][:, :x.shape[1]] = c_kv.to(cache["c_kv"].dtype)
-    cache["k_rope"][:, :x.shape[1]] = k_rope.to(cache["k_rope"].dtype)
-    return out, cache
+
+    def fill(c_kv, k_rope):
+        cache = mla_init_cache(cfg, c_kv.shape[0], max_len, c_kv.device)
+        cache["c_kv"][:, :c_kv.shape[1]] = c_kv.to(cache["c_kv"].dtype)
+        cache["k_rope"][:, :k_rope.shape[1]] = k_rope.to(cache["k_rope"].dtype)
+        return cache
+
+    return out, on_shards(fill, c_kv, k_rope, whole=(1, 2))
 
 
 def mla_decode(p, x, cache, cfg, pos: int):
@@ -127,27 +175,36 @@ def mla_decode(p, x, cache, cfg, pos: int):
     c_kv[:, slot] = c_new[:, 0].to(c_kv.dtype)
     k_rope[:, slot] = kr_new[:, 0].to(k_rope.dtype)
     valid = (torch.arange(s_max, device=x.device) <= pos)[None, None, None]
-    scale = _scale(cfg, x.device)
     ckv = c_kv.to(dt)
     krope = k_rope.to(dt)
 
     if cfg.mla_absorb:
         # Score in latent space; W_uk folded into q, W_uv applied to the
         # attention-weighted latent.
-        q_lat = torch.einsum("bhqk,rhk->bhqr", q_nope, p["wk_b"].to(dt))
-        s = (torch.einsum("bhqr,bsr->bhqs", q_lat, ckv)
-             + torch.einsum("bhqk,bsk->bhqs", q_rope, krope)
-             ).to(torch.float32) * scale
-        w = _softmax(s, valid, dt)
-        o_lat = torch.einsum("bhqs,bsr->bhqr", w, ckv)
-        o = torch.einsum("bhqr,rhk->bhqk", o_lat, p["wv_b"].to(dt))
+        def attend(q_nope, q_rope, ckv, krope, wk_b, wv_b):
+            q_lat = torch.einsum("bhqk,rhk->bhqr", q_nope, wk_b.to(dt))
+            s = (torch.einsum("bhqr,bsr->bhqs", q_lat, ckv)
+                 + torch.einsum("bhqk,bsk->bhqs", q_rope, krope)
+                 ).to(torch.float32) * _scale(cfg, q_nope.device)
+            w = _softmax(s, valid, dt)
+            o_lat = torch.einsum("bhqs,bsr->bhqr", w, ckv)
+            return torch.einsum("bhqr,rhk->bhqk", o_lat, wv_b.to(dt))
+
+        o = by_heads(attend, q_nope, q_rope, batch=(ckv, krope),
+                     weights=(p["wk_b"], p["wv_b"]))
     else:
         # Up-project the entire cached latent every step.
         k_nope = _proj(ckv, p["wk_b"])
         v = _proj(ckv, p["wv_b"])
-        s = (torch.einsum("bhqk,bhsk->bhqs", q_nope, k_nope)
-             + torch.einsum("bhqk,bsk->bhqs", q_rope, krope)
-             ).to(torch.float32) * scale
-        w = _softmax(s, valid, dt)
-        o = torch.einsum("bhqs,bhsk->bhqk", w, v)
+
+        def attend(q_nope, q_rope, k_nope, v, krope):
+            s = (torch.einsum("bhqk,bhsk->bhqs", q_nope, k_nope)
+                 + torch.einsum("bhqk,bsk->bhqs", q_rope, krope)
+                 ).to(torch.float32) * _scale(cfg, q_nope.device)
+            w = _softmax(s, valid, dt)
+            return torch.einsum("bhqs,bhsk->bhqk", w, v)
+
+        o = by_heads(attend, q_nope, q_rope, k_nope, v, batch=(krope,))
+    if cfg.sp_attn:
+        o = constrain(o, "batch", "model", None, None)
     return x + _out_proj(o, p["wo"], dt), cache

@@ -27,27 +27,28 @@ Public entry points:
   loss_fn(params, cfg, batch)              — next-token CE + z-loss + aux
   init_cache / prefill / decode_step       — serving path with caches
 
-Not ported yet, and raising NotImplementedError: ``cfg.sp_attn`` (ROADMAP
-Queue 1 #9c).
+Sharded: every entry point also runs with DTensor parameters, caches and
+inputs (``launch/sharding.py``'s placements; the train step and the dry run
+trace it so).  DTensor carries most ops itself; the exceptions run shard
+by shard (the kernels' wrappers, decode attention, the prefill caches
+through ``layers.on_shards``, MLA's attention, the MoE expert path, the
+SSD scan), the residual stream keeps a batch-only layout between
+sublayers (``layers.residual``), and ``cfg.sp_attn`` constrains
+attention's activations as the JAX package does.
 """
 from __future__ import annotations
 
 import functools
 
 import torch
+import torch.nn.functional as F
 from torch.utils import checkpoint as _ckpt
 
 from .. import device as _device
+from ..kernels import build
 from . import attention, mla, moe, ssm
 from .config import LayerSpec, ModelConfig
-from .layers import KeyGen, dense_init, embed_init, rms_norm, swiglu
-
-
-def _check_config(cfg: ModelConfig) -> None:
-    if cfg.sp_attn:
-        raise NotImplementedError(
-            f"sp_attn (activation sharding over launch/sharding.py) "
-            f"{attention.NOT_PORTED}")
+from .layers import KeyGen, dense_init, embed_init, residual, rms_norm, swiglu
 
 
 # ---------------------------------------------------------------------------
@@ -157,14 +158,16 @@ def _apply_layer(spec: LayerSpec, p: dict, x, cfg, positions, shared, enc_out):
         return ssm.mamba_forward(p["mamba"], x, cfg), None
     elif spec.kind == "shared_attn":
         x = attention.attn_forward(shared["attn"], x, cfg, spec, positions)
-        return _mlp_forward(shared["mlp"], x), None
+        return _mlp_forward(shared["mlp"], residual(x)), None
     else:
         raise ValueError(spec.kind)
     return _ffn(spec, p, x, cfg)
 
 
 def _ffn(spec: LayerSpec, p: dict, x, cfg):
-    """The layer's MoE or MLP tail, if it has one: (x, aux loss or None)."""
+    """The layer's MoE or MLP tail, if it has one: (x, aux loss or None),
+    on the residual stream's layout."""
+    x = residual(x)
     if spec.has_mlp and spec.moe:
         return moe.moe_forward(p["moe"], x, cfg)
     if spec.has_mlp:
@@ -192,6 +195,32 @@ def _remat_wrap(fn, cfg: ModelConfig):
     return functools.partial(_ckpt.checkpoint, fn, **kw)
 
 
+def unshard(tree):
+    """FSDP at the point of use: every DTensor leaf split over the ``data``
+    mesh dim gathered whole along it (the redistribute's backward
+    reduce-scatters its gradient back to the split), as the layer that uses
+    it starts; inside a remat body the gather is redone in the backward.
+    Without it DTensor may keep the weight split and gather the activations'
+    batch instead, every rank then computing the whole batch.  Other trees
+    pass through."""
+    leaves = tree_leaves(tree) if tree is not None else []
+    if not leaves or not build.is_dtensor(leaves[0]):
+        return tree
+    from torch.distributed.tensor import Replicate
+
+    def gather(t):
+        if not build.is_dtensor(t) or "data" not in (t.device_mesh.mesh_dim_names or ()):
+            return t
+        i = t.device_mesh.mesh_dim_names.index("data")
+        if not t.placements[i].is_shard():
+            return t
+        pl = list(t.placements)
+        pl[i] = Replicate()
+        return t.redistribute(t.device_mesh, tuple(pl))
+
+    return tree_map(gather, tree)
+
+
 def _reps(stage, repeat: int) -> list:
     """The ``repeat`` per-repeat trees of a stacked stage (parameters or a
     cache): views of one ``unbind`` per leaf, whose backward is one stack
@@ -204,8 +233,10 @@ def _stage_forward(stage_params, pattern, repeat, x, cfg, positions, shared, enc
     """A stage's repeats in order, each one remat-wrapped body; returns
     (x, the stage's aux loss)."""
     def body(h, aux, rep, shared, enc_out):
+        rep, shared = unshard(rep), unshard(shared)
         for pi, spec in enumerate(pattern):
             h, a = _apply_layer(spec, rep[f"L{pi}"], h, cfg, positions, shared, enc_out)
+            h = residual(h)
             if a is not None:   # the JAX carry adds an exact 0 for the others
                 aux = aux + a
         return h, aux
@@ -220,7 +251,7 @@ def _stage_forward(stage_params, pattern, repeat, x, cfg, positions, shared, enc
 def _encode(params, cfg: ModelConfig, enc_input):
     """Whisper-style encoder over precomputed frame embeddings (stub
     frontend): non-causal attention layers, then a final norm."""
-    x = enc_input.to(getattr(torch, cfg.dtype))
+    x = residual(enc_input.to(getattr(torch, cfg.dtype)))
     positions = torch.arange(x.shape[1], device=x.device)
     pattern = (LayerSpec(kind="attn", causal=False),) * cfg.enc_pattern_mult
     x, _ = _stage_forward(params["encoder"]["stages"][0], pattern, cfg.n_enc_layers,
@@ -235,20 +266,22 @@ def _enc_out(params, cfg: ModelConfig, enc_input, vis_input):
     if cfg.n_enc_layers and enc_input is not None:
         enc_out = _encode(params, cfg, enc_input)
     if cfg.n_vis_tokens and vis_input is not None:
-        enc_out = vis_input.to(getattr(torch, cfg.dtype))
+        enc_out = residual(vis_input.to(getattr(torch, cfg.dtype)))
     return enc_out
 
 
 def _embed(params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
     dtype = getattr(torch, cfg.dtype)
-    x = params["embed"][tokens.long()].to(dtype)
+    # F.embedding, not indexing: DTensor looks up a vocab-sharded table
+    # shard by shard only through the embedding op.
+    x = residual(F.embedding(tokens.long(), unshard(params["embed"]))).to(dtype)
     # The scale rounds to the activation dtype first (√2560 → 50.5 in bf16).
     return x * torch.tensor(cfg.d_model**0.5, dtype=dtype, device=x.device)
 
 
 def _logits(params, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     x = rms_norm(x, params["final_norm"])
-    unembed = params.get("unembed", params["embed"])
+    unembed = unshard(params.get("unembed", params["embed"]))
     logits = (x @ unembed.to(x.dtype).T).to(torch.float32)
     if cfg.final_logit_softcap:
         logits = cfg.final_logit_softcap * torch.tanh(logits / cfg.final_logit_softcap)
@@ -260,7 +293,6 @@ def forward(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             vis_input: torch.Tensor | None = None,   # [B, n_vis, D] (vision stub)
             positions: torch.Tensor | None = None):
     """Returns (logits [B,S,V] f32, aux MoE loss f32 scalar)."""
-    _check_config(cfg)
     x = _embed(params, cfg, tokens)
     if positions is None:
         positions = torch.arange(tokens.shape[1], device=x.device)
@@ -282,7 +314,15 @@ def loss_fn(params: dict, cfg: ModelConfig, batch: dict):
                           vis_input=batch.get("vis_input"))
     labels = batch["labels"].long()
     logz = torch.logsumexp(logits, dim=-1)
-    logp = torch.gather(logits, -1, labels[..., None])[..., 0] - logz
+    picked = torch.gather(logits, -1, labels[..., None])
+    if build.is_dtensor(picked):
+        # Over a vocab-sharded table the pick is a masked partial sum,
+        # whose mask DTensor cannot carry through the reshape below.
+        from torch.distributed.tensor import Replicate
+
+        picked = picked.redistribute(picked.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in picked.placements))
+    logp = picked[..., 0] - logz
     ce = -torch.mean(logp)
     zloss = 1e-4 * torch.mean(logz**2)
     total = ce + zloss + 0.01 * aux
@@ -305,7 +345,6 @@ def _layer_cache(cfg, spec, batch, max_len, device):
 
 def init_cache(cfg: ModelConfig, batch: int, max_len: int, device=None) -> dict:
     """Zeroed decode cache mirroring the stage structure."""
-    _check_config(cfg)
     dev = _device.resolve(device)
     stages = []
     for repeat, pattern in cfg.stages:
@@ -324,7 +363,7 @@ def _apply_layer_decode(spec, p, c, x, cfg, pos, shared):
         return ssm.mamba_decode(p["mamba"], x, c, cfg)
     elif spec.kind == "shared_attn":
         x, c = attention.attn_decode(shared["attn"], x, c, cfg, spec, pos)
-        return _mlp_forward(shared["mlp"], x), c
+        return _mlp_forward(shared["mlp"], residual(x)), c
     else:
         raise ValueError(spec.kind)
     return _ffn(spec, p, x, cfg)[0], c
@@ -336,16 +375,16 @@ def decode_step(params: dict, cache: dict, cfg: ModelConfig,
 
     ``token`` [B, 1]; ``pos`` the position being generated (one for all
     rows).  Each layer writes its new state into ``cache`` in place."""
-    _check_config(cfg)
     pos = int(pos)
     x = _embed(params, cfg, token)
     shared = params.get("shared")
     for si, (repeat, pattern) in enumerate(cfg.stages):
-        for rep, rep_cache in zip(_reps(params["stages"][si], repeat),
+        for rep, rep_cache in zip(map(unshard, _reps(params["stages"][si], repeat)),
                                   _reps(cache["stages"][si], repeat)):
             for pi, spec in enumerate(pattern):
                 x, _ = _apply_layer_decode(spec, rep[f"L{pi}"], rep_cache[f"L{pi}"],
                                            x, cfg, pos, shared)
+                x = residual(x)
     return _logits(params, cfg, x), cache
 
 
@@ -360,7 +399,7 @@ def _apply_layer_prefill(spec, p, x, cfg, positions, max_len, shared, enc_out):
         return ssm.mamba_forward(p["mamba"], x, cfg, return_state=True)
     elif spec.kind == "shared_attn":
         x, c = attention.attn_prefill(shared["attn"], x, cfg, spec, positions, max_len)
-        return _mlp_forward(shared["mlp"], x), c
+        return _mlp_forward(shared["mlp"], residual(x)), c
     else:
         raise ValueError(spec.kind)
     return _ffn(spec, p, x, cfg)[0], c
@@ -370,7 +409,6 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
             enc_input: torch.Tensor | None = None,
             vis_input: torch.Tensor | None = None):
     """Forward over a prompt, producing (last-token logits [B, V], cache)."""
-    _check_config(cfg)
     x = _embed(params, cfg, tokens)
     positions = torch.arange(tokens.shape[1], device=x.device)
     shared = params.get("shared")
@@ -378,11 +416,12 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor, max_len: int,
     stages = []
     for si, (repeat, pattern) in enumerate(cfg.stages):
         reps = []
-        for rep in _reps(params["stages"][si], repeat):
+        for rep in map(unshard, _reps(params["stages"][si], repeat)):
             caches = {}
             for pi, spec in enumerate(pattern):
                 x, caches[f"L{pi}"] = _apply_layer_prefill(
                     spec, rep[f"L{pi}"], x, cfg, positions, max_len, shared, enc_out)
+                x = residual(x)
             reps.append(caches)
         stages.append(_stack(reps))
     return _logits(params, cfg, x[:, -1]), {"stages": stages}

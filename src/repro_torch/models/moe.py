@@ -19,8 +19,9 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import build
 from .config import ModelConfig
-from .layers import KeyGen, dense_init, rms_norm
+from .layers import KeyGen, dense_init, residual, rms_norm
 
 
 def init_moe(kg: KeyGen, cfg: ModelConfig) -> dict:
@@ -43,7 +44,9 @@ def init_moe(kg: KeyGen, cfg: ModelConfig) -> dict:
 def route(p: dict, xn: torch.Tensor, cfg: ModelConfig):
     """(probs [B,S,E], gate_vals [B,S,k] renormalised, gate_idx [B,S,k]),
     all from float32 router logits."""
-    logits = (xn @ p["router"].to(xn.dtype)).to(torch.float32)
+    # The logits' gradient meets the aux loss's: keep both on the batch
+    # layout (layers.residual) so that the router's matmul can flatten them.
+    logits = residual(xn @ p["router"].to(xn.dtype)).to(torch.float32)
     probs = torch.softmax(logits, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, cfg.top_k, dim=-1)
     return probs, gate_vals / gate_vals.sum(dim=-1, keepdim=True), gate_idx
@@ -51,6 +54,52 @@ def route(p: dict, xn: torch.Tensor, cfg: ModelConfig):
 
 def capacity(cfg: ModelConfig, s: int) -> int:
     return max(int(s * cfg.top_k / cfg.n_experts * cfg.capacity_factor), 4)
+
+
+def _expert_ffn(xe, w_gate, w_up, w_down):
+    dt = xe.dtype
+    h = F.silu(torch.einsum("becd,edf->becf", xe, w_gate.to(dt)))
+    h = h * torch.einsum("becd,edf->becf", xe, w_up.to(dt))
+    return torch.einsum("becf,efd->becd", h, w_down.to(dt))
+
+
+def _routed(dispatch, combine, xn, w_gate, w_up, w_down):
+    """The einsum implementation's expert path: dispatch the tokens into
+    their experts' slots [B,E,C,D], the experts' SwiGLU, combine back."""
+    dt = xn.dtype
+    xe = torch.einsum("bsec,bsd->becd", dispatch.to(dt), xn)
+    ye = _expert_ffn(xe, w_gate, w_up, w_down)
+    return torch.einsum("bsec,becd->bsd", combine.to(dt), ye)
+
+
+def _routed_sharded(dispatch, combine, xn, w_gate, w_up, w_down):
+    """:func:`_routed` of DTensors, expert-parallel in one ``local_map``
+    region: batch rows over the data axes and experts over ``model``
+    (where each divides), every expert's weights whole on the rank that
+    holds its slots.  Each rank combines its own experts' outputs, so the
+    result is a partial sum over ``model``; the weights' gradients are
+    partial sums over the batch's ranks, the tokens' over the experts'.
+    (DTensor's own einsums flatten (slots, experts) with the experts split,
+    which it does not do.)"""
+    from torch.distributed.tensor import Partial
+    from torch.distributed.tensor.experimental import local_map
+
+    from ..launch import sharding as shr
+
+    mesh = xn.device_mesh
+    b, _, e, _ = dispatch.shape
+    lead = shr.batch_spec(mesh, b, 1)
+    ex = shr._div(mesh, "model", e)
+    slots = shr.placements(lead + (None, ex, None), mesh)
+    tokens = shr.placements(lead + (None, None), mesh)
+    weights = shr.placements((ex, None, None), mesh)
+    out = tuple(Partial() if s.is_shard(2) else t for s, t in zip(slots, tokens))
+    pls = (slots, slots, tokens, weights, weights, weights)
+    run = local_map(_routed, out_placements=(out,), in_placements=pls,
+                    in_grad_placements=tuple(build.grad_placements(pl, slots)
+                                             for pl in pls),
+                    redistribute_inputs=True, device_mesh=mesh)
+    return run(dispatch, combine, xn, w_gate, w_up, w_down)
 
 
 def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
@@ -68,11 +117,13 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
     keep = (pos >= 0) & (pos < cap)
     pos_i = torch.where(keep, pos, 0.0).to(torch.int64)
 
+    experts = (p["w_gate"], p["w_up"], p["w_down"])
     if cfg.moe_impl == "einsum":
         pos_onehot = F.one_hot(pos_i, cap).to(torch.float32) * keep[..., None]
         dispatch = torch.einsum("bske,bskec->bsec", onehot, pos_onehot)
         combine = dispatch * torch.einsum("bsk,bske->bse", gate_vals, onehot)[..., None]
-        xe = torch.einsum("bsec,bsd->becd", dispatch.to(dt), xn)     # [B,E,C,D]
+        routed = _routed_sharded if build.is_dtensor(xn) else _routed
+        y = routed(dispatch, combine, xn, *experts)
     else:
         kept = keep & (onehot > 0)                                 # [B,S,k,E]
         dev = x.device
@@ -92,14 +143,7 @@ def moe_forward(p: dict, x: torch.Tensor, cfg: ModelConfig):
         rows = torch.arange(b, device=dev)[:, None, None]
         xe = xn[rows, token_for_slot]                              # [B,E,C,D]
         xe = xe * slot_live.reshape(b, e, cap)[..., None].to(dt)
-
-    h = F.silu(torch.einsum("becd,edf->becf", xe, p["w_gate"].to(dt)))
-    h = h * torch.einsum("becd,edf->becf", xe, p["w_up"].to(dt))
-    ye = torch.einsum("becf,efd->becd", h, p["w_down"].to(dt))      # [B,E,C,D]
-
-    if cfg.moe_impl == "einsum":
-        y = torch.einsum("bsec,becd->bsd", combine.to(dt), ye)
-    else:
+        ye = _expert_ffn(xe, *experts)                             # [B,E,C,D]
         # Each (token, choice) reads its expert's output slot.
         choice_pos = (pos_i * onehot.to(torch.int64)).sum(-1)       # [B,S,k]
         flat_out_idx = gate_idx * cap + choice_pos

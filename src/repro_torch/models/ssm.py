@@ -15,6 +15,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from ..kernels import build
 from .config import ModelConfig
 from .layers import KeyGen, dense_init, rms_norm
 
@@ -113,6 +114,39 @@ def _ssd_chunk_scan(xh, dt, a, bmat, cmat, chunk: int):
     return y[:, :s_orig], state
 
 
+def _ssd(xh, dt, a, bmat, cmat, chunk: int):
+    """:func:`_ssd_chunk_scan`; on DTensors shard by shard, in one
+    ``local_map`` region (the scan's cumsum differentiates through a flip,
+    which DTensor has no sharding of in every torch version).  Per mesh
+    dim, xh's split batch splits every batched input, and its split heads
+    split xh, dt and a (B and C, shared by the heads, kept whole, their
+    gradients partial sums); anything else is replicated."""
+    if not build.is_dtensor(xh):
+        return _ssd_chunk_scan(xh, dt, a, bmat, cmat, chunk)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    mesh = xh.device_mesh
+    h = xh.shape[2]
+    pl = {k: [] for k in ("xh", "dt", "a", "bc", "state")}
+    for i, p in enumerate(xh.placements):
+        if p.is_shard(0):
+            pick = dict(xh=p, dt=p, a=Replicate(), bc=p, state=p)
+        elif p.is_shard(2) and h % mesh.size(i) == 0:
+            pick = dict(xh=p, dt=p, a=Shard(0), bc=Replicate(), state=Shard(1))
+        else:
+            pick = dict.fromkeys(pl, Replicate())
+        for k in pl:
+            pl[k].append(pick[k])
+    pl = {k: tuple(v) for k, v in pl.items()}
+    ins = (pl["xh"], pl["dt"], pl["a"], pl["bc"], pl["bc"])
+    run = local_map(lambda *t: _ssd_chunk_scan(*t, chunk),
+                    out_placements=(pl["xh"], pl["state"]), in_placements=ins,
+                    in_grad_placements=tuple(build.grad_placements(q, pl["xh"]) for q in ins),
+                    redistribute_inputs=True, device_mesh=mesh)
+    return run(xh, dt, a, bmat, cmat)
+
+
 def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, return_state=False):
     """Full-sequence Mamba2 block. x: [B, S, D]; with ``return_state`` also
     the decode cache {conv, ssm} (float32)."""
@@ -126,7 +160,7 @@ def mamba_forward(p: dict, x: torch.Tensor, cfg: ModelConfig, return_state=False
     dt = F.softplus(dt.to(torch.float32) + p["dt_bias"])         # [B,S,H]
     a = -torch.exp(p["a_log"])                                    # [H]
     xh = xin.reshape(*xin.shape[:2], nh, hd)
-    y, state = _ssd_chunk_scan(xh, dt, a, bmat, cmat, cfg.ssm_chunk)
+    y, state = _ssd(xh, dt, a, bmat, cmat, cfg.ssm_chunk)
     y = y + p["d_skip"][None, None, :, None] * xh.to(torch.float32)
     y = y.reshape(xin.shape).to(dt_)
     y = rms_norm(y * F.silu(z), p["out_norm"])

@@ -406,10 +406,11 @@ def fake_card(monkeypatch):
     [B, Sq, H, D] memory layout, counting its calls."""
     calls = []
 
-    def fake_launch(inst, q, k, v, *, causal, window, softcap):
+    def fake_launch(inst, q, k, v, *, causal, window, softcap, q_offset=0):
         calls.append(inst)
         with torch.no_grad():
-            out = ref.mha_ref(q, k, v, causal=causal, window=window, softcap=softcap)
+            out = ref.mha_ref(q, k, v, causal=causal, window=window, softcap=softcap,
+                              q_offset=q_offset)
         return out.transpose(1, 2).contiguous().transpose(1, 2)
 
     monkeypatch.setattr(ops.build, "on_cuda", lambda name, *ts: True)

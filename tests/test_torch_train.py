@@ -345,11 +345,11 @@ def fake_card(monkeypatch):
         out.detach().numpy()[...] = value.detach().numpy()
         return out
 
-    def flash(inst, q, k, v, *, causal, window, softcap):
+    def flash(inst, q, k, v, *, causal, window, softcap, q_offset=0):
         calls["flash"] += 1
         out = torch.empty(q.shape, dtype=q.dtype)
         return fill(out, fref.mha_ref(q, k, v, causal=causal, window=window,
-                                      softcap=softcap))
+                                      softcap=softcap, q_offset=q_offset))
 
     def norm(x, scale, eps):
         calls["rmsnorm"] += 1
