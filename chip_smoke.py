@@ -1374,7 +1374,10 @@ def profile_busy(label: str, fn, dev, warm_s: float) -> dict:
             wall = time.perf_counter() - t0
     per_name: dict[str, float] = {}
     for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
+        # record_function ranges (obs spans under a profiler) are mirrored
+        # onto the device timeline as annotations; they are not device work.
+        if (e.device_type == DeviceType.CUDA
+                and not getattr(e, "is_user_annotation", False)):
             per_name[e.name] = per_name.get(e.name, 0.0) + e.device_time_total
     busy_ms = sum(per_name.values()) / 1e3
     if busy_ms == 0.0:

@@ -17,6 +17,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import obs
 from ..graphs.formats import Graph
 from ..kernels import dispatch
 from .walks import WalkConfig, WalkTrace
@@ -71,10 +72,12 @@ def khat_cross_matvec(
 
 
 def take_rows(trace: WalkTrace, rows: torch.Tensor) -> WalkTrace:
-    """Row-subset of Φ (training-node features Φ_x)."""
-    rows = rows.long()
-    return WalkTrace(cols=trace.cols[rows], loads=trace.loads[rows],
-                     lens=trace.lens[rows])
+    """Row-subset of Φ (training-node features Φ_x); the
+    ``features.take_rows`` span."""
+    with obs.span("features.take_rows"):
+        rows = rows.long()
+        return WalkTrace(cols=trace.cols[rows], loads=trace.loads[rows],
+                         lens=trace.lens[rows])
 
 
 def materialize_phi(trace: WalkTrace, f: torch.Tensor, n_nodes: int) -> torch.Tensor:

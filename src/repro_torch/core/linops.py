@@ -12,6 +12,9 @@ All operators are frozen dataclasses, callable (``op(v) == op.matvec(v)``),
 and route every product through ``kernels.dispatch``.  ``KhatOperator``
 keeps an injectable ``reduce`` hook applied to the intermediate u = Φ_colsᵀv,
 for the row-sharded distributed matvec of a later slice.
+
+Every Φ product is a ``linops.phi`` (Φu) or ``linops.phi_t`` (Φᵀv) span
+and every K̂ product a ``linops.khat`` span; none of them blocks.
 """
 from __future__ import annotations
 
@@ -20,6 +23,7 @@ from typing import Callable
 
 import torch
 
+from .. import obs
 from ..graphs.formats import Graph
 from ..kernels import dispatch
 from . import features
@@ -50,12 +54,14 @@ class PhiOperator:
 
     def matvec(self, u: torch.Tensor) -> torch.Tensor:
         """y = Φ u.  u: [N(, R)] → y: [M(, R)]."""
-        return dispatch.phi_matvec(self.vals(), self.trace.cols, u)
+        with obs.span("linops.phi"):
+            return dispatch.phi_matvec(self.vals(), self.trace.cols, u)
 
     def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
         """u = Φᵀ v.  v: [M(, R)] → u: [N(, R)]."""
-        return dispatch.phi_t_matvec(self.vals(), self.trace.cols, v,
-                                     self.n_nodes)
+        with obs.span("linops.phi_t"):
+            return dispatch.phi_t_matvec(self.vals(), self.trace.cols, v,
+                                         self.n_nodes)
 
     def diag_approx(self) -> torch.Tensor:
         """diag(Φ) for square M == N (slots whose column is the own row)."""
@@ -115,13 +121,15 @@ class ChunkedPhiOperator:
 
     def matvec(self, u: torch.Tensor) -> torch.Tensor:
         """y = Φ u, streamed: peak extra memory O(chunk·K)."""
-        return features.phi_matvec_chunked(self.graph, self.f, u, self.seed,
-                                           **self._kw())
+        with obs.span("linops.phi"):
+            return features.phi_matvec_chunked(self.graph, self.f, u,
+                                               self.seed, **self._kw())
 
     def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
         """u = Φᵀ v, streamed scatter-accumulate into [N(, R)]."""
-        return features.phi_t_matvec_chunked(self.graph, self.f, v, self.seed,
-                                             **self._kw())
+        with obs.span("linops.phi_t"):
+            return features.phi_t_matvec_chunked(self.graph, self.f, v,
+                                                 self.seed, **self._kw())
 
     def diag_sq(self) -> torch.Tensor:
         return features.khat_diag_approx_chunked(self.graph, self.f, self.seed,
@@ -163,16 +171,18 @@ class KhatOperator:
     def matvec(self, v: torch.Tensor) -> torch.Tensor:
         fusable = isinstance(self.rows, PhiOperator) and isinstance(
             self.cols, PhiOperator)
-        if self.reduce is None and fusable:
-            return dispatch.khat_matvec(
-                self.rows.vals(), self.rows.trace.cols,
-                self.cols.vals(), self.cols.trace.cols,
-                v, self.n_nodes, self.cols.trace.column_index(self.n_nodes),
-            )
-        u = self.cols.rmatvec(v)
-        if self.reduce is not None:
-            u = self.reduce(u)
-        return self.rows.matvec(u)
+        with obs.span("linops.khat"):
+            if self.reduce is None and fusable:
+                return dispatch.khat_matvec(
+                    self.rows.vals(), self.rows.trace.cols,
+                    self.cols.vals(), self.cols.trace.cols,
+                    v, self.n_nodes,
+                    self.cols.trace.column_index(self.n_nodes),
+                )
+            u = self.cols.rmatvec(v)
+            if self.reduce is not None:
+                u = self.reduce(u)
+            return self.rows.matvec(u)
 
     def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
         return self.transpose().matvec(v)

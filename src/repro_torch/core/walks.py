@@ -62,11 +62,13 @@ class WalkTrace:
         trace — every CG iteration, fit step and later call — reads the same
         one.  The key holds the tensors' versions too, so an in-place write
         (a donated serving update writes its state's trace) rebuilds the
-        index instead of reading a stale one."""
+        index instead of reading a stale one.  A build is the
+        ``walks.column_index`` span; a read of the kept index is none."""
         key = (n_nodes, self.cols._version, self.loads._version)
         kept = self.__dict__.get("_column_index")
         if kept is None or kept[0] != key:
-            kept = (key, column_index(self.cols, self.loads, n_nodes))
+            with obs.span("walks.column_index"):
+                kept = (key, column_index(self.cols, self.loads, n_nodes))
             object.__setattr__(self, "_column_index", kept)
         return kept[1]
 

@@ -21,7 +21,8 @@ closed-form Eq. 3/4 of a serving state (``serving/state.py``).
 Observability (when ``obs`` is enabled): :func:`posterior_mean`,
 :func:`pathwise_samples` and :func:`pathwise_samples_chunked` are the
 ``posterior.mean``, ``posterior.pathwise`` and
-``posterior.pathwise_chunked`` spans, each blocked on its result.
+``posterior.pathwise_chunked`` spans, each blocked on its result; the
+draws of w and eps are the ``posterior.draw`` span.
 """
 from __future__ import annotations
 
@@ -62,11 +63,12 @@ def _draw(generator: torch.Generator, n: int, t: int, n_samples: int,
     """Prior weights w [N, S] then unit noise eps [T, S], from ``generator``
     on its own device, moved to ``device``."""
     gdev = generator.device
-    w = torch.randn((n, n_samples), generator=generator, device=gdev,
-                    dtype=torch.float32)
-    eps = torch.randn((t, n_samples), generator=generator, device=gdev,
-                      dtype=torch.float32)
-    return w.to(device), eps.to(device)
+    with obs.span("posterior.draw"):
+        w = torch.randn((n, n_samples), generator=generator, device=gdev,
+                        dtype=torch.float32)
+        eps = torch.randn((t, n_samples), generator=generator, device=gdev,
+                          dtype=torch.float32)
+        return w.to(device), eps.to(device)
 
 
 def posterior_mean(

@@ -21,9 +21,10 @@ Events (span ends, tap records) additionally stream to every attached
     package's, so either package's validator reads either's records.
 
 Enablement resolves context override > process global > ``REPRO_OBS`` env
-var > disabled.  **Disabled is the default and costs one predicate**: every
-span, tap and counter call checks :func:`enabled` first and then returns,
-reading nothing from the device.
+var > disabled.  The env var is read when the module is imported and again
+by :func:`reset_enabled`, not on every check.  **Disabled is the default
+and costs one predicate**: every span, tap and counter call checks
+:func:`enabled` first and then returns, reading nothing from the device.
 """
 from __future__ import annotations
 
@@ -45,35 +46,44 @@ _global_enabled: bool | None = None
 _override: ContextVar[bool | None] = ContextVar("repro_obs_enabled", default=None)
 
 
+def _env_enabled() -> bool:
+    return os.environ.get("REPRO_OBS", "").lower() in ("1", "true", "on")
+
+
+# The process-wide switch as resolved: the global if set, else the env var
+# as last read.  Kept current by every writer of ``_global_enabled``.
+_resolved: bool = _env_enabled()
+
+
+def _set_global(flag: bool | None) -> None:
+    global _global_enabled, _resolved
+    _global_enabled = flag
+    _resolved = _env_enabled() if flag is None else flag
+
+
 def enabled() -> bool:
     """Resolve the observability switch (context > global > env > False).
 
     Read by every span, tap and counter call before anything else — a
     False here records nothing and reads nothing from the device."""
     ov = _override.get()
-    if ov is not None:
-        return ov
-    if _global_enabled is not None:
-        return _global_enabled
-    return os.environ.get("REPRO_OBS", "").lower() in ("1", "true", "on")
+    return _resolved if ov is None else ov
 
 
 def enable() -> None:
     """Enable observability process-wide (metrics + taps + spans)."""
-    global _global_enabled
-    _global_enabled = True
+    _set_global(True)
 
 
 def disable() -> None:
     """Disable observability process-wide (the zero-overhead default)."""
-    global _global_enabled
-    _global_enabled = False
+    _set_global(False)
 
 
 def reset_enabled() -> None:
-    """Restore env-var/default resolution (mainly for tests)."""
-    global _global_enabled
-    _global_enabled = None
+    """Restore env-var/default resolution, reading ``REPRO_OBS`` again
+    (mainly for tests)."""
+    _set_global(None)
 
 
 @contextlib.contextmanager
@@ -417,7 +427,6 @@ def recording(path: str | None = None, ring: int = 4096, fresh: bool = True):
     Yields the active :class:`Registry`.  Restores the previous enablement
     state on exit, so recordings nest inside explicitly-disabled scopes
     without leaking."""
-    global _global_enabled
     if fresh:
         REGISTRY.reset()
     sinks: list[MetricsSink] = [RingBufferSink(ring)]
@@ -426,13 +435,13 @@ def recording(path: str | None = None, ring: int = 4096, fresh: bool = True):
     for sink in sinks:
         REGISTRY.add_sink(sink)
     prev = _global_enabled
-    _global_enabled = True
+    _set_global(True)
     REGISTRY.emit(_meta_record())
     try:
         yield REGISTRY
     finally:
         REGISTRY.emit({"type": "summary", "metrics": REGISTRY.snapshot()})
-        _global_enabled = prev
+        _set_global(prev)
         for sink in sinks:
             REGISTRY.remove_sink(sink)
             sink.close()

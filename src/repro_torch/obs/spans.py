@@ -19,16 +19,32 @@ explicit opt-in for honest device timing.  CPU tensors need no wait.
 
 Nesting is tracked with a contextvar stack: each span event records its
 ``path`` (slash-joined ancestry) and ``depth``, and the duration lands in
-the ``span.<name>`` histogram of the registry.  When observability is
-disabled, :func:`span` yields a shared no-op object: one predicate check,
-nothing recorded, no profiler range entered, no synchronisation.  The port
-has no jit trace, so every enabled span records (the JAX package's
+the ``span.<name>`` histogram of the registry.  Each root span (depth 0)
+takes the next number of a process-wide sequence, and every span event and
+tap event under that root carries it as ``"request"``, so the events of
+one request group together.
+
+A span is in one of three states:
+
+  * observability enabled: recorded as above, inside a profiler range;
+  * disabled while a torch profiler is recording: the ``record_function``
+    range alone, so a profiled run sees the program's layers on the
+    profiler's own clock.  Nothing is recorded in the registry and nothing
+    blocks: ``block=`` and :meth:`Span.block_on` are ignored, so the span
+    neither synchronises nor reads from the device;
+  * disabled with no profiler: a shared no-op — two predicate checks,
+    nothing recorded, no profiler range entered (``record_function`` costs
+    far more than the checks even with no profiler running), no
+    synchronisation.
+
+The port has no jit trace, so every enabled span records (the JAX package's
 no-op-under-trace rule has nothing to apply to).
 """
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import itertools
 import time
 from contextvars import ContextVar
 
@@ -36,8 +52,26 @@ import torch
 
 from . import registry
 
+# The port's spans that have no counterpart in the JAX package: the layer
+# boundaries inside the posterior path (its draws, the operator products,
+# the column-index build, the CG loop, its iterations and host reads), which
+# the JAX package runs inside one jit.  Both packages' records hold the same
+# spans once these are taken out.
+PORT_SPANS = ("posterior.draw", "features.take_rows", "walks.column_index",
+              "linops.phi", "linops.phi_t", "linops.khat", "solver.cg",
+              "solver.cg.iter", "solver.cg.read")
+
 _stack: ContextVar[tuple[str, ...]] = ContextVar("repro_torch_obs_spans",
                                                  default=())
+_request: ContextVar[int | None] = ContextVar("repro_torch_obs_request",
+                                              default=None)
+_requests = itertools.count()
+_profiling = torch._C._autograd._profiler_enabled
+
+
+def current_request() -> int | None:
+    """The sequence number of the enclosing root span, None outside one."""
+    return _request.get()
 
 
 class Span:
@@ -75,6 +109,7 @@ class _NullSpan:
 
 
 _NULL = _NullSpan()
+_OFF = contextlib.nullcontext(_NULL)   # obs disabled, no profiler
 
 
 def _cuda_devices(value, out: set) -> set:
@@ -98,19 +133,32 @@ def _block(value) -> None:
         torch.cuda.synchronize(dev)
 
 
-@contextlib.contextmanager
 def span(name: str, *, block=None, **attrs):
     """Time a host-side region as a nested span named ``name``.
 
     ``block`` (or :meth:`Span.block_on` inside the region) opts into
     device-honest timing; ``attrs`` seed the span event's attributes.
-    Zero work when observability is disabled."""
-    if not registry.enabled():
+    With obs disabled: only a profiler range while a torch profiler is
+    recording (no block, no record), else zero work."""
+    if registry.enabled():
+        return _recorded(name, block, attrs)
+    if _profiling():
+        return _profiler_range(name)
+    return _OFF
+
+
+@contextlib.contextmanager
+def _profiler_range(name: str):
+    with torch.profiler.record_function(name):
         yield _NULL
-        return
+
+
+@contextlib.contextmanager
+def _recorded(name: str, block, attrs: dict):
     parent = _stack.get()
     path = "/".join((*parent, name))
     token = _stack.set((*parent, name))
+    root = _request.set(next(_requests)) if not parent else None
     sp = Span(name, path, depth=len(parent))
     if attrs:
         sp.note(**attrs)
@@ -133,7 +181,10 @@ def span(name: str, *, block=None, **attrs):
             "depth": sp.depth,
             "dur_s": dur,
             "blocked": sp._block is not None,
+            "request": _request.get(),
         }
         if sp.attrs:
             event["attrs"] = sp.attrs
+        if root is not None:
+            _request.reset(root)
         registry.REGISTRY.emit(event)

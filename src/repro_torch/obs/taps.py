@@ -19,7 +19,15 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import registry
+from . import registry, spans
+
+
+def _event(rec: dict) -> dict:
+    """A tap event, with the enclosing root span's ``request`` if any."""
+    request = spans.current_request()
+    if request is not None:
+        rec["request"] = request
+    return rec
 
 
 def _pyval(v):
@@ -70,7 +78,7 @@ def tap_dict(
         rec = {"type": "tap", "name": name, "values": payload}
         if meta:
             rec["meta"] = dict(meta)
-        reg.emit(rec)
+        reg.emit(_event(rec))
 
 
 def tap(
@@ -95,7 +103,8 @@ def tap(
     else:
         reg.set_gauge(name, float(x))
     if event:
-        reg.emit({"type": "tap", "name": name, "values": {"value": x}})
+        reg.emit(_event({"type": "tap", "name": name,
+                         "values": {"value": x}}))
 
 
 def count(name: str, n: int = 1, labels: dict | None = None) -> None:

@@ -22,7 +22,10 @@ residual norm as ``solver.cg.resnorm_traj``.  The adaptive loop takes that
 value in the same device-to-host copy as its per-iteration stopping test;
 the fixed loop, which reads nothing inside, keeps the sampled norms on the
 device and reads them once after its last iteration.  Disabled, neither
-loop reads more than it did without obs.
+loop reads more than it did without obs.  Either loop is the ``solver.cg``
+span, each iteration a ``solver.cg.iter`` span, and each stopping test of
+the adaptive loop, with its host read, a ``solver.cg.read`` span beside
+them; none of these blocks.
 """
 from __future__ import annotations
 
@@ -30,6 +33,7 @@ from typing import Callable, NamedTuple
 
 import torch
 
+from .. import obs
 from ..obs import registry as _obs
 from ..obs import taps as _obs_taps
 from .strategy import SolveStrategy
@@ -102,12 +106,13 @@ def _keep_going(resnorm: torch.Tensor, thresh: torch.Tensor, it: int) -> bool:
     """The adaptive loop's stopping test, any(‖r‖ > tol·‖b‖) — one host
     read.  When obs samples this iteration's residual (every 8th after the
     first), the worst norm rides in the same copy."""
-    going = torch.any(resnorm > thresh)
-    if it == 0 or not (_obs.enabled()
-                       and _obs.REGISTRY.tap_tick(_TRAJ, _TRAJ_SAMPLE)):
-        return bool(going)
-    flag, worst = torch.stack([going.to(resnorm.dtype),
-                               torch.max(resnorm)]).tolist()
+    with obs.span("solver.cg.read"):
+        going = torch.any(resnorm > thresh)
+        if it == 0 or not (_obs.enabled()
+                           and _obs.REGISTRY.tap_tick(_TRAJ, _TRAJ_SAMPLE)):
+            return bool(going)
+        flag, worst = torch.stack([going.to(resnorm.dtype),
+                                   torch.max(resnorm)]).tolist()
     _obs_taps.tap(_TRAJ, worst)
     return bool(flag)
 
@@ -144,19 +149,21 @@ def cg_solve(
 
     x, res, z, p, rz = _init_state(matvec, b, x0, apply_m, dot)
     it = 0
-    while it < max_iters and _keep_going(torch.sqrt(dot(res, res)), thresh,
-                                         it):
-        hp = matvec(p)
-        php = dot(p, hp)
-        alpha = _safe_div(rz, php, php > 0)
-        x = x + alpha[None, :] * p
-        res = res - alpha[None, :] * hp
-        z = apply_m(res)
-        rz_new = dot(res, z)
-        beta = _safe_div(rz_new, rz, rz > 0)
-        p = z + beta[None, :] * p
-        rz = rz_new
-        it += 1
+    with obs.span("solver.cg"):
+        while it < max_iters and _keep_going(torch.sqrt(dot(res, res)),
+                                             thresh, it):
+            with obs.span("solver.cg.iter"):
+                hp = matvec(p)
+                php = dot(p, hp)
+                alpha = _safe_div(rz, php, php > 0)
+                x = x + alpha[None, :] * p
+                res = res - alpha[None, :] * hp
+                z = apply_m(res)
+                rz_new = dot(res, z)
+                beta = _safe_div(rz_new, rz, rz > 0)
+                p = z + beta[None, :] * p
+                rz = rz_new
+            it += 1
     out = x[:, 0] if squeeze else x
     resnorm = torch.sqrt(dot(res, res))
     return CGResult(out, it, resnorm, resnorm <= thresh)
@@ -191,22 +198,25 @@ def cg_solve_fixed(
         betas = torch.zeros_like(alphas)
         valid = torch.zeros_like(alphas, dtype=torch.bool)
     traj = []   # sampled worst residual norms, read once after the loop
-    for i in range(iters):
-        hp = matvec(p)
-        php = dot(p, hp)
-        active = (php > 0) & (rz > 0)
-        alpha = _safe_div(rz, php, active)
-        x = x + alpha[None, :] * p
-        res = res - alpha[None, :] * hp
-        z = apply_m(res)
-        rz_new = dot(res, z)
-        beta = _safe_div(rz_new, rz, rz > 0)
-        p = z + beta[None, :] * p
-        rz = rz_new
-        if with_coeffs:
-            alphas[i], betas[i], valid[i] = alpha, beta, active
-        if _obs.enabled() and _obs.REGISTRY.tap_tick(_TRAJ, _TRAJ_SAMPLE):
-            traj.append(torch.max(torch.sqrt(dot(res, res))))
+    with obs.span("solver.cg"):
+        for i in range(iters):
+            with obs.span("solver.cg.iter"):
+                hp = matvec(p)
+                php = dot(p, hp)
+                active = (php > 0) & (rz > 0)
+                alpha = _safe_div(rz, php, active)
+                x = x + alpha[None, :] * p
+                res = res - alpha[None, :] * hp
+                z = apply_m(res)
+                rz_new = dot(res, z)
+                beta = _safe_div(rz_new, rz, rz > 0)
+                p = z + beta[None, :] * p
+                rz = rz_new
+                if with_coeffs:
+                    alphas[i], betas[i], valid[i] = alpha, beta, active
+                if (_obs.enabled()
+                        and _obs.REGISTRY.tap_tick(_TRAJ, _TRAJ_SAMPLE)):
+                    traj.append(torch.max(torch.sqrt(dot(res, res))))
     if traj:
         for worst in torch.stack(traj).tolist():
             _obs_taps.tap(_TRAJ, worst)

@@ -7,7 +7,9 @@ layer reads nothing from the device: one posterior call and one fit chunk
 make as many host reads as with every obs entry point stubbed out.
 
 JAX's ``test_span_noop_under_active_trace`` has no counterpart: the port
-has no trace.
+has no trace.  Its counterpart here is the profiler-only state: with obs
+disabled under a recording torch profiler, a span is a profiler range and
+nothing else.
 """
 import contextlib
 import json
@@ -57,6 +59,7 @@ def ring_sink():
 def test_enablement_resolution(monkeypatch):
     assert not obs.enabled()                      # default: off
     monkeypatch.setenv("REPRO_OBS", "1")
+    obs.reset_enabled()                           # the env is read on reset
     assert obs.enabled()                          # env turns it on
     obs.disable()
     assert not obs.enabled()                      # global beats env
@@ -68,6 +71,26 @@ def test_enablement_resolution(monkeypatch):
             assert obs.enabled()
         assert not obs.enabled()
     assert obs.enabled()
+
+
+def test_env_var_is_read_on_import_and_reset_only(monkeypatch):
+    """A disabled check reads no environment: ``REPRO_OBS`` is resolved
+    when the module is imported and by ``reset_enabled``; a recording
+    restores the resolved state on exit."""
+    monkeypatch.setenv("REPRO_OBS", "1")
+    assert not obs.enabled()                      # not read per check
+    obs.reset_enabled()
+    assert obs.enabled()
+    monkeypatch.delenv("REPRO_OBS")
+    assert obs.enabled()
+    with obs.recording(None):
+        assert obs.enabled()
+    obs.disable()
+    with obs.recording(None):
+        assert obs.enabled()
+    assert not obs.enabled()                      # the global restored
+    obs.reset_enabled()
+    assert not obs.enabled()
 
 
 def test_module_conveniences_honour_switch():
@@ -203,12 +226,60 @@ def test_enabled_span_is_a_profiler_range():
     assert "obs.test_range" in {e.key for e in prof.key_averages()}
 
 
-def test_disabled_span_enters_no_profiler_range():
-    with torch.profiler.profile(activities=[
-            torch.profiler.ProfilerActivity.CPU]) as prof:
-        with obs.span("obs.test_off"):
-            torch.ones(4) + 1
-    assert "obs.test_off" not in {e.key for e in prof.key_averages()}
+def _cpu_profile():
+    return torch.profiler.profile(
+        activities=[torch.profiler.ProfilerActivity.CPU])
+
+
+def _range_counts(prof) -> dict:
+    return {e.key: e.count for e in prof.key_averages()}
+
+
+def test_disabled_span_without_profiler_enters_no_range(monkeypatch,
+                                                       ring_sink):
+    """Obs and the profiler both off: the span never reaches
+    ``record_function`` (which costs far more than the span's checks)."""
+    def refuse(*a, **k):
+        raise AssertionError("record_function entered with obs and the "
+                             "profiler off")
+
+    monkeypatch.setattr(torch.profiler, "record_function", refuse)
+    monkeypatch.setattr(torch.autograd.profiler, "record_function", refuse)
+    with obs.span("obs.test_off", block=torch.ones(2)) as sp:
+        sp.note(x=1)
+        torch.ones(4) + 1
+    assert sp is spans._NULL
+    assert not ring_sink.events
+    assert not any(obs.REGISTRY.snapshot().values())
+
+
+def test_disabled_span_under_a_profiler_is_a_range_only(ring_sink):
+    """Obs off under a recording profiler: the span's range is in the
+    profile, and nothing reaches the registry or a sink."""
+    with _cpu_profile() as prof:
+        with obs.span("obs.test_profiled") as sp:
+            sp.note(x=1)
+            with obs.span("obs.test_inner"):
+                torch.ones(4) + 1
+    counts = _range_counts(prof)
+    assert counts["obs.test_profiled"] == counts["obs.test_inner"] == 1
+    assert not ring_sink.events
+    assert not any(obs.REGISTRY.snapshot().values())
+
+
+def test_profiler_only_span_never_blocks(monkeypatch):
+    """``block=`` and ``block_on`` are ignored under the profiler alone: no
+    synchronisation is attempted and nothing is read from the device."""
+    def refuse(value):
+        raise AssertionError("a profiler-only span blocked")
+
+    monkeypatch.setattr(spans, "_block", refuse)
+    x = torch.arange(8, dtype=torch.float32)
+    with _cpu_profile() as prof, _count_reads() as counts:
+        with obs.span("obs.test_block", block=x) as sp:
+            sp.block_on({"y": [x * 2.0]})
+    assert counts["n"] == 0
+    assert _range_counts(prof)["obs.test_block"] == 1
 
 
 def test_disabled_overhead_gate():
@@ -368,6 +439,73 @@ def test_cg_residual_trajectory_every_8th_iteration(ring_sink, adaptive):
     res_off = solvers.solve(h, b, strategy.with_(max_iters=17))
     assert traj[-1] == pytest.approx(float(torch.max(res_off.resnorm)),
                                      rel=1e-6)
+
+
+@pytest.mark.parametrize("adaptive", [True, False])
+def test_cg_spans_under_a_profiler(adaptive):
+    """The adaptive loop reads its stopping test once before each iteration
+    and once more to stop (iterations + 1 reads, when it converges under its
+    cap); the fixed loop reads nothing inside."""
+    h, b = _solver_problem()
+    strategy = solvers.SolveStrategy(tol=1e-4, max_iters=200,
+                                     preconditioner="jacobi",
+                                     adaptive=adaptive)
+    with _cpu_profile() as prof:
+        res = solvers.solve(h, b, strategy)
+    counts = _range_counts(prof)
+    assert 0 < res.iters < 200 if adaptive else res.iters == 200
+    assert counts["solver.cg"] == 1
+    assert counts["solver.cg.iter"] == res.iters
+    assert counts.get("solver.cg.read", 0) == (res.iters + 1 if adaptive
+                                               else 0)
+    assert counts["linops.khat"] == res.iters
+
+
+def test_column_index_span_counts_builds_only():
+    """``walks.column_index`` is a build: the first K̂ product on a trace
+    makes one, a second product reads the kept index."""
+    g = generators.ring(256, k=3, device=CPU)
+    tr = walks.sample_walks(g, SEED, n_walkers=4, p_halt=0.3, l_max=4)
+    mod = modulation.diffusion(l_max=4)
+    f = mod(mod.init(device=CPU))
+    trace_x = features.take_rows(tr, torch.arange(0, 256, 8))
+    k = linops.khat(trace_x, f, g.n_nodes)
+    v = torch.ones(32, 2)
+    with _cpu_profile() as prof:
+        k.matvec(v)
+    with _cpu_profile() as again:
+        k.matvec(v)
+    first, second = _range_counts(prof), _range_counts(again)
+    assert first["walks.column_index"] == 1 and first["linops.khat"] == 1
+    assert "walks.column_index" not in second and second["linops.khat"] == 1
+
+
+def test_span_events_of_one_request_share_its_number(ring_sink):
+    """Every span and tap under one ``pathwise_samples`` call carries the
+    same ``request``; the next call carries the next one."""
+    g = generators.ring(200, k=2, device=CPU)
+    tr = walks.sample_walks(g, SEED, n_walkers=4, p_halt=0.3, l_max=3)
+    mod = modulation.diffusion(l_max=3)
+    f = mod(mod.init(device=CPU))
+    rng = np.random.default_rng(0)
+    train = torch.from_numpy(np.sort(rng.choice(200, 24, replace=False)))
+    y = torch.from_numpy(rng.standard_normal(24).astype(np.float32))
+    with obs.recording(None):
+        for seed in (1, 2):
+            posterior.pathwise_samples(tr, train, f, 0.1, y,
+                                       torch.Generator().manual_seed(seed),
+                                       n_samples=4)
+    events = [e for e in ring_sink.events if e["type"] in ("span", "tap")]
+    roots = [e for e in events if e["type"] == "span" and e["depth"] == 0]
+    assert [e["name"] for e in roots] == ["posterior.pathwise"] * 2
+    first, second = (e["request"] for e in roots)
+    assert second == first + 1
+    names = {e["name"] for e in events if e["type"] == "span"}
+    assert set(spans.PORT_SPANS) - {"linops.phi_t"} <= names
+    cut = events.index(roots[0]) + 1
+    assert {e.get("request") for e in events[:cut]} == {first}
+    assert {e.get("request") for e in events[cut:]} == {second}
+    assert any(e["type"] == "tap" for e in events[:cut])
 
 
 # ---------------------------------------------------------------------------
@@ -554,6 +692,7 @@ def test_same_schema_as_the_jax_package(tmp_path):
     from repro import serving as jserving
     from repro.bo import thompson as jthompson
     from repro.core import features as jfeat
+    from repro.core import linops as jlinops
     from repro.core import modulation as jmod
     from repro.core import walks as jwalks
     from repro.gp import mll as jmll
@@ -584,6 +723,7 @@ def test_same_schema_as_the_jax_package(tmp_path):
         jpost.posterior_mean(tr, jnp.asarray(train), f, s2, jnp.asarray(y))
         jpost.pathwise_samples(tr, jnp.asarray(train), f, s2, jnp.asarray(y),
                                key, n_samples=4)
+        jlinops.phi(tr, f, n).rmatvec(jnp.ones((n,), jnp.float32))
         st = jserving.init_state(jg, key, f, s2, 16, cfg)
         st = jserving.observe_batch(st, train[:4], y[:4])
         st = jserving.observe(st, int(train[4]), float(y[4]))
@@ -605,6 +745,7 @@ def test_same_schema_as_the_jax_package(tmp_path):
         posterior.posterior_mean(tr, t_train, f, s2, t_y)
         posterior.pathwise_samples(tr, t_train, f, s2, t_y,
                                    torch.Generator().manual_seed(1), n_samples=4)
+        linops.phi(tr, f, n).rmatvec(torch.ones(n))
         st = serving.init_state(tg, SEED, f, s2, 16, cfg)
         st = serving.observe_batch(st, train[:4], y[:4])
         st = serving.observe(st, int(train[4]), float(y[4]))
@@ -627,11 +768,25 @@ def test_same_schema_as_the_jax_package(tmp_path):
     jev, tev = jreport.read_events(jpath), report.read_events(tpath)
     assert report.validate(tpath) == [] and jreport.validate(tpath) == []
     assert report.validate(jpath) == []
-    assert ({e["path"] for e in tev if e["type"] == "span"}
+    # The port's own spans (spans.PORT_SPANS) are taken out of its paths
+    # and histograms; each of them has to be in the record, so that the
+    # declared set hides no other difference.
+    port = set(spans.PORT_SPANS)
+
+    def jax_paths(path):
+        return "/".join(p for p in path.split("/") if p not in port)
+
+    tspans = [e for e in tev if e["type"] == "span"]
+    assert port <= {e["name"] for e in tspans}
+    assert ({jax_paths(e["path"]) for e in tspans if e["name"] not in port}
             == {e["path"] for e in jev if e["type"] == "span"})
     assert ({e["type"] for e in tev} == {e["type"] for e in jev})
     jm, tm = jev[-1]["metrics"], tev[-1]["metrics"]
-    assert _names(tm) == _names(jm)
+    tnames = _names(tm)
+    own = {f"span.{name}" for name in port}
+    assert own <= tnames["histograms"]
+    tnames["histograms"] -= own
+    assert tnames == _names(jm)
     for name in DETERMINISTIC:
         assert _total(tm["counters"], name) == _total(jm["counters"], name) > 0, name
     # The port's label values: the scheme, and the device type as backend.
