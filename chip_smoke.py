@@ -21,7 +21,8 @@ non-zero exit and no result line):
                the column payload never touches, an empty column payload,
                gram_block at M_r = 1, K_r != K_c, every main-path shape and
                a side of 1 100 000 rows; khat_fused and gram_block bit-equal
-               over two calls; ell_spmv's instances at R in {1-D, 1, 2, 3,
+               over two calls; gram_aggregate on one payload bit-equal to its
+               plain version up to [4096, 900]; ell_spmv's instances at R in {1-D, 1, 2, 3,
                4, 16, 17, 64} x K in {1, 7, 48, 144} x M in {0, 1, 33,
                65537}, on walk payloads of a ring and a preferential-
                attachment graph, and on a u and a payload off 16-byte
@@ -1018,7 +1019,8 @@ def phase_main(dev) -> dict:
     out = run_path(MAIN, dev, dev, timings)
     counts = dispatch.launch_counts()
     record_shapes("main")
-    for name in ("walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused"):
+    for name in ("walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused",
+                 "gram_aggregate"):
         expect(counts[name] > 0, f"main path never launched {name}")
     check_path_outputs(out, MAIN, "main")
     warm = warm_times(out["calls"], dev)
@@ -1111,6 +1113,31 @@ def check_gram_cases(dev) -> None:
           f"of scale, and repeats bit for bit, in {cases} cases (ragged, "
           f"duplicates, zero slots, M_r = 1, K_r != K_c, every main-path shape, "
           f"a side of 1 100 000 rows)")
+    # The aggregate launched alone on one payload (the coalesced K̂ payload's
+    # build) against aggregate_rows_ref, bit for bit, padding included: the
+    # serving width, the wind example's K = 900 with each row's first column
+    # repeated 100 times, ragged K, an empty payload.
+    before = ops.LAUNCHES["gram_aggregate"]
+    agg_cases = [(1024, 144, False), (4096, 900, True), (300, 33, True),
+                 (50, 70, False), (0, 144, False)]
+    for m, k, rep in agg_cases:
+        vals, cols = _gram_payload(rng, m, k, 5000, True, 0.3)
+        if rep and m:
+            cols[:, ::k // 100 or 1] = cols[:, :1]
+        tv, tc = t(vals), t(cols)
+        got = ops.aggregate_rows_raw(tv, tc)
+        want = ref.aggregate_rows_ref(tv, tc)
+        expect(all(torch.equal(a, b) for a, b in zip(got, want)),
+               f"gram_aggregate [{m}, {k}]: not bit-equal to aggregate_rows_ref")
+        expect(all(torch.equal(a, b) for a, b in
+                   zip(got, ops.aggregate_rows_raw(tv, tc))),
+               f"gram_aggregate [{m}, {k}]: two calls differ")
+    launched = ops.LAUNCHES["gram_aggregate"] - before
+    expect(launched == 2 * sum(1 for m, _, _ in agg_cases if m),
+           f"gram_aggregate launched {launched} times in its parity cases")
+    print(f"[parity] gram_aggregate on one payload equals aggregate_rows_ref bit "
+          f"for bit (columns, counts, sums, padding) and repeats, in "
+          f"{len(agg_cases)} cases up to [4096, 900]; {launched} launches")
 
     def grads(fn, args, diff, g):
         ts = list(args)
@@ -4585,22 +4612,27 @@ def column_index_timed(trace, n: int, label: str):
 
 def device_kernels(fn, dev, reps: int = 10) -> list[str]:
     """Names of the device activities (kernels, memsets, copies) of ``reps``
-    profiled calls of ``fn``, in order of first appearance (a window of one
-    short call can come back from the profiler empty)."""
+    profiled calls of ``fn``, in order of first appearance.  A short window
+    can come back from the profiler empty (ten coalesced K̂ products at the
+    posterior's CG shape did), so an empty one is profiled again over ten
+    times the calls."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    sync(dev)
-    with warnings.catch_warnings():
-        warnings.simplefilter("ignore", UserWarning)
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(reps):
-                fn()
-            sync(dev)
-    names = [e.name for e in prof.events() if e.device_type == DeviceType.CUDA]
-    expect(bool(names), "the profiler saw no device activity")
-    return list(dict.fromkeys(names))
+    for calls in (reps, 10 * reps):
+        sync(dev)
+        with warnings.catch_warnings():
+            warnings.simplefilter("ignore", UserWarning)
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(calls):
+                    fn()
+                sync(dev)
+        names = [e.name for e in prof.events()
+                 if e.device_type == DeviceType.CUDA]
+        if names:
+            return list(dict.fromkeys(names))
+    expect(False, "the profiler saw no device activity")
 
 
 def csr(vals, cols, n_cols: int, transpose: bool = False):
@@ -5020,6 +5052,7 @@ def phase_timing(dev, results: dict) -> list[dict]:
     # One CG iteration's operator product H p = K̂_xx p + σ²p: its device
     # work must hold nothing N-long (no fill or memset).
     h = linops.shifted(tx, f, MAIN["sigma_n2"], n)
+    h.matvec(alpha)   # builds the coalesced payload, once per (trace, f)
     names = device_kernels(lambda: h.matvec(alpha), dev)
     fills = [x for x in names if "fill" in x.lower() or "memset" in x.lower()]
     expect(not fills, f"one CG iteration's H p fills memory: {fills}")
@@ -5372,6 +5405,7 @@ def timing_woodbury(dev, solv: dict, launches: int) -> tuple[dict, dict]:
           f"plain {pms:.4f} ms, bound {kb[0] * 1e3:.3f} us ({kb[1]}), library "
           f"(composed torch.sparse.mm pair) {lib:.4f} ms, max_abs_err {err:.3e} "
           f"(rel {rel:.2e})")
+    solv["h"].matvec(p)   # builds the coalesced payload, once per (trace, f)
     names = device_kernels(lambda: solv["h"].matvec(p), dev)
     fills = [x for x in names if "fill" in x.lower() or "memset" in x.lower()]
     expect(not fills, f"one solvers CG iteration's H p fills memory: {fills}")

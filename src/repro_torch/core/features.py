@@ -6,6 +6,8 @@ modulation vector ``f``.  All products are O(M·K), K = n·(l_max+1):
   * ``phi_matvec``     y = Φ u          (gather-reduce over slots)
   * ``phi_t_matvec``   u = Φᵀ v         (scatter-add over slots)
   * ``khat_matvec``    y = K̂ v = Φ(Φᵀv) (Thm. 2: O(N) matvec)
+  * ``coalesce``       Φ as one entry per distinct (row, column), the
+                       payload the fused K̂ products of a solve read
 
 Every product goes through ``kernels.dispatch`` (CUDA kernel on the card,
 plain version on the CPU).  The chunked drivers re-sample ``chunk``-row
@@ -15,11 +17,14 @@ monolithic trace), so peak memory is O(chunk·K) instead of O(N·K); the JAX
 """
 from __future__ import annotations
 
+import dataclasses
+
 import torch
 
 from .. import obs
 from ..graphs.formats import Graph
 from ..kernels import dispatch
+from ..kernels.ell_spmv.index import ColumnIndex, column_index
 from .walks import WalkConfig, WalkTrace
 
 
@@ -69,6 +74,48 @@ def khat_cross_matvec(
         feature_values(trace_cols, f), trace_cols.cols,
         v, n_nodes, trace_cols.column_index(n_nodes),
     )
+
+
+@dataclasses.dataclass(frozen=True)
+class Coalesced:
+    """Φ with each row's slots that share a column merged (:func:`coalesce`).
+
+    Attributes:
+      vals:  float32[M, Kc] each row's distinct entries, the sums of their
+             slots' values, in order of first occurrence, then 0.
+      cols:  int32[M, Kc] their columns; the padding holds node 0, a valid
+             id (the fused kernel maps every slot's column before it tests
+             the value).
+      index: the column index of (cols, vals) over the graph's nodes.
+    """
+
+    vals: torch.Tensor
+    cols: torch.Tensor
+    index: ColumnIndex
+
+
+def coalesce(trace: WalkTrace, f: torch.Tensor, n_nodes: int) -> Coalesced:
+    """Φ = (trace, f) as one entry per distinct (row, column), its value the
+    sum of the row's slots there: the same matrix up to the order of float32
+    sums, in a tenth of the live slots on a walk row (58 of 612 on the wind
+    example's track), so a fused K̂ product gathers a tenth of the rows of
+    its dense operands.  The rows are aggregated by ``gram_block``'s first
+    step; one host read (the largest count and the sum of the counts) cuts
+    the payload to Kc, the largest count rounded up to 32.  With obs on, a
+    ``khat.coalesce`` tap records the rows, live slots, kept entries and Kc.
+    """
+    vals = feature_values(trace, f)
+    m, k = vals.shape
+    acols, avals, counts = dispatch.aggregate_rows(vals, trace.cols)
+    most, kept = (torch.stack([counts.max().long(), counts.sum()]).tolist()
+                  if m else (0, 0))
+    kc = min(k, -(-most // 32) * 32)
+    cols = acols[:, :kc].clamp_min(0).contiguous()
+    cvals = avals[:, :kc].contiguous()
+    if obs.enabled():
+        obs.tap_dict("khat.coalesce", {"rows": m, "live": (vals != 0).sum(),
+                                       "kept": kept, "kc": kc})
+    return Coalesced(cvals, cols, column_index(cols, cvals, n_nodes))
 
 
 def take_rows(trace: WalkTrace, rows: torch.Tensor) -> WalkTrace:

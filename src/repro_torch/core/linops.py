@@ -11,7 +11,12 @@
 All operators are frozen dataclasses, callable (``op(v) == op.matvec(v)``),
 and route every product through ``kernels.dispatch``.  ``KhatOperator``
 keeps an injectable ``reduce`` hook applied to the intermediate u = Φ_colsᵀv,
-for the row-sharded distributed matvec of a later slice.
+for the row-sharded distributed matvec of a later slice.  Its fused product
+reads the column factor's coalesced payload (``WalkTrace.coalesced``: one
+entry per distinct (row, column), a tenth of a walk row's slots) wherever
+that payload is on the card and f is float32 and needs no gradient, and the
+row factor's too when the two factors are one; each such product counts
+into ``khat.coalesced_products``.
 
 Every Φ product is a ``linops.phi`` (Φu) or ``linops.phi_t`` (Φᵀv) span
 and every K̂ product a ``linops.khat`` span; none of them blocks.
@@ -26,8 +31,25 @@ import torch
 from .. import obs
 from ..graphs.formats import Graph
 from ..kernels import dispatch
+from ..obs import taps as _obs_taps
 from . import features
 from .walks import DEFAULT_CHUNK, WalkConfig, WalkTrace
+
+
+def _on_card(t: torch.Tensor) -> bool:
+    return t.is_cuda
+
+
+def _coalesced(p: "PhiOperator"):
+    """Φ's coalesced payload, where a fused product reads it: on the card,
+    with a float32 f that needs no gradient (the fits' gradient flows
+    through the slot values; a bf16 f is the reduced-precision solve).
+    None elsewhere, and the product reads the slot payload as before."""
+    f = p.f
+    if (_on_card(p.trace.cols) and f.dtype == torch.float32
+            and not f.requires_grad):
+        return p.trace.coalesced(f, p.n_nodes)
+    return None
 
 
 def _bcast(d, v):
@@ -153,8 +175,9 @@ class KhatOperator:
     """K̂ = Φ_rows Φ_colsᵀ — square (rows is cols) or cross-covariance.
 
     With no ``reduce`` hook and materialised traces on both sides the product
-    runs the fused K̂ kernel; with a :class:`ChunkedPhiOperator` on either
-    side (or a hook) it is composed as Φ_colsᵀ then Φ_rows."""
+    runs the fused K̂ kernel, through the coalesced column payload where
+    :func:`_coalesced` gives one; with a :class:`ChunkedPhiOperator` on
+    either side (or a hook) it is composed as Φ_colsᵀ then Φ_rows."""
 
     rows: "PhiOperator | ChunkedPhiOperator"
     cols: "PhiOperator | ChunkedPhiOperator"
@@ -173,16 +196,27 @@ class KhatOperator:
             self.cols, PhiOperator)
         with obs.span("linops.khat"):
             if self.reduce is None and fusable:
-                return dispatch.khat_matvec(
-                    self.rows.vals(), self.rows.trace.cols,
-                    self.cols.vals(), self.cols.trace.cols,
-                    v, self.n_nodes,
-                    self.cols.trace.column_index(self.n_nodes),
-                )
+                return self._fused(v)
             u = self.cols.rmatvec(v)
             if self.reduce is not None:
                 u = self.reduce(u)
             return self.rows.matvec(u)
+
+    def _fused(self, v: torch.Tensor) -> torch.Tensor:
+        c = _coalesced(self.cols)
+        if c is None:
+            return dispatch.khat_matvec(
+                self.rows.vals(), self.rows.trace.cols,
+                self.cols.vals(), self.cols.trace.cols,
+                v, self.n_nodes, self.cols.trace.column_index(self.n_nodes),
+            )
+        if self.rows is self.cols:
+            vals_r, cols_r = c.vals, c.cols
+        else:
+            vals_r, cols_r = self.rows.vals(), self.rows.trace.cols
+        _obs_taps.count("khat.coalesced_products")
+        return dispatch.khat_matvec(vals_r, cols_r, c.vals, c.cols, v,
+                                    self.n_nodes, c.index)
 
     def rmatvec(self, v: torch.Tensor) -> torch.Tensor:
         return self.transpose().matvec(v)

@@ -314,6 +314,18 @@ static cudaError_t allow_smem(const void* fn, int bytes, int* allowed) {
   return err;
 }
 
+// allow_smem for a kernel that gram_block_launch also opts in, which keeps
+// its own record of what it set: read the kernel's limit and only ever
+// raise it, so that neither entry lowers it below what the other relies on.
+static cudaError_t raise_smem(const void* fn, int bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  cudaFuncAttributes attr;
+  const cudaError_t err = cudaFuncGetAttributes(&attr, fn);
+  if (err != cudaSuccess || attr.maxDynamicSharedSizeBytes >= bytes) return err;
+  int allowed = 0;
+  return allow_smem(fn, bytes, &allowed);
+}
+
 extern "C" {
 
 const char* repro_cuda_error_string(int code) {
@@ -389,6 +401,33 @@ int gram_block_launch(const void* vals_r, const void* cols_r,
       hash_c ? cnt_c : cnt_r, m_h, k_h, hash_c ? acols_r : acols_c,
       hash_c ? avals_r : avals_c, hash_c ? cnt_r : cnt_c, m_p, k_p,
       (float*)out, out_h, out_p, tile, bits);
+  return (int)cudaGetLastError();
+}
+
+// One payload [m, k] aggregated alone: gram_aggregate with no column side.
+// acols/avals are [m, k] (each row's entries, then padding up to a
+// multiple of 32, at least 32 and at most k; entries past that are not
+// written), cnt is [m].
+int gram_aggregate_launch(const void* vals, const void* cols, void* acols,
+                          void* avals, void* cnt, long long m, int k,
+                          void* stream) {
+  if (m < 0 || k < 0) return (int)cudaErrorInvalidValue;
+  if (m == 0) return (int)cudaSuccess;
+  const int sms = sm_count();
+  if (sms == 0) return (int)cudaErrorInitializationError;
+  const int per_warp = (2 * k + 32) * (int)sizeof(int);
+  int warps = (200 << 10) / per_warp;
+  if (warps > WARPS) warps = WARPS;
+  if (warps < 1) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = raise_smem((const void*)gram_aggregate,
+                                     warps * per_warp);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (m + warps - 1) / warps;
+  if (blocks > 32LL * sms) blocks = 32LL * sms;
+  gram_aggregate<<<(unsigned int)blocks, warps * 32, warps * per_warp,
+                   (cudaStream_t)stream>>>(
+      (const float*)vals, (const int*)cols, m, k, nullptr, nullptr, 0, 0,
+      (int*)acols, (float*)avals, (int*)cnt, nullptr, nullptr, nullptr);
   return (int)cudaGetLastError();
 }
 

@@ -78,6 +78,14 @@ def gram_block(vals_rows, cols_rows, vals_cols, cols_cols):
                                _f32(vals_cols), cols_cols.contiguous())
 
 
+def aggregate_rows(vals, cols):
+    """Each row of an ELL payload as its distinct (column, Σ value) entries
+    in order of first occurrence, then padding (column −1, value 0):
+    (cols i32[M, K], sums f32[M, K], counts i32[M]) — gram_block's first
+    step, on one payload."""
+    return gram_ops.aggregate_rows_raw(_f32(vals), cols.contiguous())
+
+
 def woodbury_apply(b, dinv, einv, v):
     """M⁻¹v = D⁻¹v − D⁻¹B E⁻¹ BᵀD⁻¹v — the Nyström preconditioner apply
     (B [T, r], D⁻¹ [T], E⁻¹ [r, r], v [T] or [T, R])."""

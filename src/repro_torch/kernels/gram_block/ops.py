@@ -4,6 +4,9 @@ autograd Function.
 ``gram_block_raw`` runs the plain version (ref.py) on CPU tensors and
 launches the kernel on CUDA tensors — on PyTorch's current stream, after
 checking device, dtype, shape and contiguity — or raises.
+``aggregate_rows_raw`` does the same for the kernel's first step alone on
+one payload (``gram_aggregate``), which the coalesced K̂ payload is built
+from (core/features.py ``coalesce``).
 :func:`gram_block` wraps it in a ``torch.autograd.Function`` that mirrors
 the JAX custom VJP (``repro/kernels/gram_block/ops.py:42``): G is bilinear
 in the two value payloads and each cotangent is a weighted sparse lookup,
@@ -21,16 +24,17 @@ import ctypes
 import torch
 
 from .. import build
-from .ref import gram_block_ref, gram_lookup_ref
+from .ref import aggregate_rows_ref, gram_block_ref, gram_lookup_ref
 
 # Kernel launches since the last reset (chip_smoke.py reads it).
-LAUNCHES = {"gram_block": 0}
+LAUNCHES = {"gram_block": 0, "gram_aggregate": 0}
 
 _F32 = (torch.float32,)
 _I32 = (torch.int32,)
 _VP = ctypes.c_void_p
 _ARGS = [_VP] * 6 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_longlong,
                      ctypes.c_int, _VP]
+_AGG_ARGS = [_VP] * 5 + [ctypes.c_longlong, ctypes.c_int, _VP]
 
 
 def _check(name, vals, cols, side):
@@ -66,6 +70,36 @@ def gram_block_raw(vals_rows: torch.Tensor, cols_rows: torch.Tensor,
            m_c, k_c, build.stream(dev))
     LAUNCHES[name] += 1
     return out
+
+
+def aggregate_rows_raw(vals: torch.Tensor, cols: torch.Tensor):
+    """Each row's distinct (column, Σ value) entries over its non-zero
+    slots, in order of first occurrence (``aggregate_rows_ref``, bit for
+    bit): f32/i32 [M, K] → (cols i32[M, K], sums f32[M, K], counts
+    i32[M]); entries past a row's count are column −1 and value 0 (the
+    kernel writes a row's padding only up to the next multiple of 32, so the
+    outputs start filled)."""
+    name = "gram_aggregate"
+    if not build.on_cuda(name, vals, cols):
+        return aggregate_rows_ref(vals, cols)
+    build.check(name, vals, "vals", _F32, (2,))
+    build.check(name, cols, "cols", _I32, (2,))
+    if vals.shape != cols.shape:
+        raise ValueError(f"{name}: vals {tuple(vals.shape)} and cols "
+                         f"{tuple(cols.shape)} differ")
+    m, k = vals.shape
+    dev = vals.device
+    out_c = torch.full((m, k), -1, dtype=torch.int32, device=dev)
+    out_v = torch.zeros((m, k), dtype=torch.float32, device=dev)
+    counts = torch.zeros((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return out_c, out_v, counts
+    fn = build.bind("gram_block", "gram_aggregate_launch", _AGG_ARGS)
+    with build.device(dev):
+        fn(build.ptr(vals), build.ptr(cols), build.ptr(out_c), build.ptr(out_v),
+           build.ptr(counts), m, k, build.stream(dev))
+    LAUNCHES[name] += 1
+    return out_c, out_v, counts
 
 
 class _GramFn(torch.autograd.Function):

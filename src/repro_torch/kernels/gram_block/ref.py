@@ -72,13 +72,29 @@ def gram_lookup_ref(g_rows: torch.Tensor, vals_cols: torch.Tensor,
     return torch.cat(out)
 
 
+def _kernel_order_sums(same: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """sums[r, a] = Σ_b same[r, a, b]·v[r, b] in the CUDA kernel's order:
+    each chunk of 32 slots in slot order, then the chunks' sums in order,
+    so that the two agree bit for bit (each product is exact: ``same`` is 0
+    or 1, and adding a zero leaves a sum as it is)."""
+    same = same.to(v.dtype)
+    total = torch.zeros_like(v)
+    for c0 in range(0, v.shape[1], 32):
+        part = torch.zeros_like(v)
+        for b in range(c0, min(c0 + 32, v.shape[1])):
+            part = part + same[:, :, b] * v[:, b:b + 1]
+        total = total + part
+    return total
+
+
 def aggregate_rows_ref(vals: torch.Tensor, cols: torch.Tensor):
     """Each row's distinct (column, Σ value) entries over its non-zero slots,
     in order of first occurrence — the CUDA kernel's first step, in plain
-    PyTorch.  vals f32[M, K], cols i32[M, K] → (cols i32[M, K], sums
-    f32[M, K], counts i32[M]); entries past a row's count are column −1 and
-    value 0.  Since G[i, j] = Σ_c A_i(c)·B_j(c) for the aggregated rows A
-    and B, ``gram_block_ref`` of the two aggregated payloads is G."""
+    PyTorch, summed in the kernel's order.  vals f32[M, K], cols i32[M, K]
+    → (cols i32[M, K], sums f32[M, K], counts i32[M]); entries past a row's
+    count are column −1 and value 0.  Since G[i, j] = Σ_c A_i(c)·B_j(c) for
+    the aggregated rows A and B, ``gram_block_ref`` of the two aggregated
+    payloads is G."""
     vals = vals.to(torch.float32)
     m, k = vals.shape
     out_c = torch.full((m, k), -1, dtype=torch.int32, device=vals.device)
@@ -92,7 +108,7 @@ def aggregate_rows_ref(vals: torch.Tensor, cols: torch.Tensor):
         # same[r, a, b]: slots a and b of row r are live and share a column.
         same = (c[:, :, None] == c[:, None, :]) & live[:, :, None] & live[:, None, :]
         first = live & (same.to(torch.int8).argmax(dim=2) == slot)
-        sums = torch.einsum("rab,rb->ra", same.to(vals.dtype), v)
+        sums = _kernel_order_sums(same, v)
         at = torch.cumsum(first.to(torch.int64), dim=1) - 1
         rows = torch.arange(v.shape[0], device=vals.device)[:, None].expand_as(at)
         out_c[i:i + step][rows[first], at[first]] = c[first].to(torch.int32)
