@@ -22,7 +22,8 @@ non-zero exit and no result line):
                gram_block at M_r = 1, K_r != K_c, every main-path shape and
                a side of 1 100 000 rows; khat_fused and gram_block bit-equal
                over two calls; gram_aggregate on one payload bit-equal to its
-               plain version up to [4096, 900]; ell_spmv's instances at R in {1-D, 1, 2, 3,
+               plain version at the main path's [1024, 48], the solvers'
+               [4000, 144] and the track's [149832, 900]; ell_spmv's instances at R in {1-D, 1, 2, 3,
                4, 16, 17, 64} x K in {1, 7, 48, 144} x M in {0, 1, 33,
                65537}, on walk payloads of a ring and a preferential-
                attachment graph, and on a u and a payload off 16-byte
@@ -1023,6 +1024,7 @@ def phase_main(dev) -> dict:
                  "gram_aggregate"):
         expect(counts[name] > 0, f"main path never launched {name}")
     check_path_outputs(out, MAIN, "main")
+    check_coalesce_main(out["seed"], dev)
     warm = warm_times(out["calls"], dev)
     for label, t in timings.items():
         print(f"[main] {label}: first call {t['s'] * 1e3:.1f} ms, warm median "
@@ -1032,6 +1034,36 @@ def phase_main(dev) -> dict:
     device_busy(out["calls"], dev, ("posterior_mean", "pathwise_samples",
                                     "pathwise_samples_chunked"), warm)
     return dict(counts=counts, out=out, timings=timings)
+
+
+def check_coalesce_main(seed, dev) -> None:
+    """The coalesced training payload the main path's solves read, built on
+    the card (aggregate kernel), against the plain build of the same trace
+    on the CPU: payload, columns and column index bit for bit."""
+    import torch
+
+    from repro_torch.core import features, walks
+
+    graph, wcfg, f, train, _ = make_problem(MAIN, dev)
+    tx = features.take_rows(walks.sample_walks(graph, seed, wcfg.n_walkers,
+                                               wcfg.p_halt, wcfg.l_max), train)
+    n = graph.n_nodes
+    got = features.coalesce(tx, f, n)
+    cpu = torch.device("cpu")
+    want = features.coalesce(walks.WalkTrace(
+        cols=tx.cols.to(cpu), loads=tx.loads.to(cpu), lens=tx.lens.to(cpu)),
+        f.to(cpu), n)
+    pairs = [("vals", got.vals, want.vals), ("cols", got.cols, want.cols)] + [
+        (f"index.{k}", getattr(got.index, k), getattr(want.index, k))
+        for k in ("uniq", "order", "seg", "node_map")]
+    for name, a, b in pairs:
+        expect(a.shape == b.shape and torch.equal(a.cpu(), b),
+               f"main: coalesced {name} on the card differs from the plain build")
+    kept = int((want.vals != 0).sum())
+    live = int((features.feature_values(tx, f) != 0).sum())
+    print(f"[main] coalesced training payload [{tx.n_nodes}, {tx.slots}] -> "
+          f"{tuple(got.vals.shape)} on the card equals the plain build bit for "
+          f"bit (values, columns, index); kept {kept} of {live} live slots")
 
 
 def phase_e2e(dev) -> None:
@@ -1115,10 +1147,13 @@ def check_gram_cases(dev) -> None:
           f"a side of 1 100 000 rows)")
     # The aggregate launched alone on one payload (the coalesced K̂ payload's
     # build) against aggregate_rows_ref, bit for bit, padding included: the
-    # serving width, the wind example's K = 900 with each row's first column
-    # repeated 100 times, ragged K, an empty payload.
+    # main path's training block [1024, 48], the serving width, the solvers'
+    # block [4000, 144], the wind example's K = 900 with each row's first
+    # column repeated 100 times, in a block and at the whole track's 149832
+    # rows, ragged K, an empty payload.
     before = ops.LAUNCHES["gram_aggregate"]
-    agg_cases = [(1024, 144, False), (4096, 900, True), (300, 33, True),
+    agg_cases = [(1024, 48, False), (1024, 144, False), (4000, 144, True),
+                 (4096, 900, True), (149832, 900, True), (300, 33, True),
                  (50, 70, False), (0, 144, False)]
     for m, k, rep in agg_cases:
         vals, cols = _gram_payload(rng, m, k, 5000, True, 0.3)
@@ -1137,7 +1172,7 @@ def check_gram_cases(dev) -> None:
            f"gram_aggregate launched {launched} times in its parity cases")
     print(f"[parity] gram_aggregate on one payload equals aggregate_rows_ref bit "
           f"for bit (columns, counts, sums, padding) and repeats, in "
-          f"{len(agg_cases)} cases up to [4096, 900]; {launched} launches")
+          f"{len(agg_cases)} cases up to [149832, 900]; {launched} launches")
 
     def grads(fn, args, diff, g):
         ts = list(args)

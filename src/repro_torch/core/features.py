@@ -8,6 +8,7 @@ modulation vector ``f``.  All products are O(M·K), K = n·(l_max+1):
   * ``khat_matvec``    y = K̂ v = Φ(Φᵀv) (Thm. 2: O(N) matvec)
   * ``coalesce``       Φ as one entry per distinct (row, column), the
                        payload the fused K̂ products of a solve read
+                       (``coalesced`` keeps it on the trace)
 
 Every product goes through ``kernels.dispatch`` (CUDA kernel on the card,
 plain version on the CPU).  The chunked drivers re-sample ``chunk``-row
@@ -18,6 +19,7 @@ monolithic trace), so peak memory is O(chunk·K) instead of O(N·K); the JAX
 from __future__ import annotations
 
 import dataclasses
+import weakref
 
 import torch
 
@@ -86,7 +88,8 @@ class Coalesced:
       cols:  int32[M, Kc] their columns; the padding holds node 0, a valid
              id (the fused kernel maps every slot's column before it tests
              the value).
-      index: the column index of (cols, vals) over the graph's nodes.
+      index: the column index of its entries (the padding not) over the
+             graph's nodes.
     """
 
     vals: torch.Tensor
@@ -101,7 +104,8 @@ def coalesce(trace: WalkTrace, f: torch.Tensor, n_nodes: int) -> Coalesced:
     example's track), so a fused K̂ product gathers a tenth of the rows of
     its dense operands.  The rows are aggregated by ``gram_block``'s first
     step; one host read (the largest count and the sum of the counts) cuts
-    the payload to Kc, the largest count rounded up to 32.  With obs on, a
+    the payload to Kc, the largest count rounded up to 32, and sizes its
+    column index.  With obs on, a
     ``khat.coalesce`` tap records the rows, live slots, kept entries and Kc.
     """
     vals = feature_values(trace, f)
@@ -110,12 +114,34 @@ def coalesce(trace: WalkTrace, f: torch.Tensor, n_nodes: int) -> Coalesced:
     most, kept = (torch.stack([counts.max().long(), counts.sum()]).tolist()
                   if m else (0, 0))
     kc = min(k, -(-most // 32) * 32)
+    entry = acols[:, :kc] >= 0
     cols = acols[:, :kc].clamp_min(0).contiguous()
     cvals = avals[:, :kc].contiguous()
     if obs.enabled():
         obs.tap_dict("khat.coalesce", {"rows": m, "live": (vals != 0).sum(),
                                        "kept": kept, "kc": kc})
-    return Coalesced(cvals, cols, column_index(cols, cvals, n_nodes))
+    # The index lists every entry (the read gave their number, so it finds
+    # them without a host read of its own); an entry whose slots summed to
+    # exactly 0 adds 0 to a product.
+    return Coalesced(cvals, cols, column_index(cols, entry, n_nodes, nnz=kept))
+
+
+def coalesced(trace: WalkTrace, f: torch.Tensor, n_nodes: int) -> Coalesced:
+    """:func:`coalesce` of (trace, f), built on first use and kept on the
+    trace beside its column index (``WalkTrace.column_index``).  It depends
+    on ``f`` too, so the key holds ``f`` itself, by a weak reference (a
+    freed ``f`` never matches, even where the allocator gives its address to
+    the next one), with its version and dtype, and the versions of ``cols``,
+    ``loads`` and ``lens``.  A build is a ``walks.column_index`` span, as
+    the column index's is; a read of the kept payload is none."""
+    key = (n_nodes, trace.cols._version, trace.loads._version,
+           trace.lens._version, f._version, f.dtype)
+    kept = trace.__dict__.get("_coalesced")
+    if kept is None or kept[0] != key or kept[1]() is not f:
+        with obs.span("walks.column_index"):
+            kept = (key, weakref.ref(f), coalesce(trace, f, n_nodes))
+        object.__setattr__(trace, "_coalesced", kept)
+    return kept[2]
 
 
 def take_rows(trace: WalkTrace, rows: torch.Tensor) -> WalkTrace:

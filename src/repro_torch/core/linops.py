@@ -12,7 +12,7 @@ All operators are frozen dataclasses, callable (``op(v) == op.matvec(v)``),
 and route every product through ``kernels.dispatch``.  ``KhatOperator``
 keeps an injectable ``reduce`` hook applied to the intermediate u = Φ_colsᵀv,
 for the row-sharded distributed matvec of a later slice.  Its fused product
-reads the column factor's coalesced payload (``WalkTrace.coalesced``: one
+reads the column factor's coalesced payload (``features.coalesced``: one
 entry per distinct (row, column), a tenth of a walk row's slots) wherever
 that payload is on the card and f is float32 and needs no gradient, and the
 row factor's too when the two factors are one; each such product counts
@@ -42,13 +42,15 @@ def _on_card(t: torch.Tensor) -> bool:
 
 def _coalesced(p: "PhiOperator"):
     """Φ's coalesced payload, where a fused product reads it: on the card,
-    with a float32 f that needs no gradient (the fits' gradient flows
-    through the slot values; a bf16 f is the reduced-precision solve).
-    None elsewhere, and the product reads the slot payload as before."""
+    with a float32 f that needs no gradient.  The fits' f needs one, their
+    solve's too (``mll_surrogate_loss`` solves under no_grad with f as it
+    is), since their gradient flows through the slot values; a bf16 f is
+    the reduced-precision solve.  None elsewhere, and the product reads the
+    slot payload as before."""
     f = p.f
     if (_on_card(p.trace.cols) and f.dtype == torch.float32
             and not f.requires_grad):
-        return p.trace.coalesced(f, p.n_nodes)
+        return features.coalesced(p.trace, f, p.n_nodes)
     return None
 
 

@@ -16,8 +16,7 @@ row, walker and call counters are kept by ``kernels.dispatch.walk_sample``.
 from __future__ import annotations
 
 import dataclasses
-import weakref
-from typing import TYPE_CHECKING, Iterator
+from typing import Iterator
 
 import torch
 
@@ -26,9 +25,6 @@ from ..graphs.formats import Graph
 from ..kernels import dispatch
 from ..kernels.ell_spmv.index import ColumnIndex, column_index
 from ..kernels.walk_sampler.rng import SCHEMES
-
-if TYPE_CHECKING:
-    from .features import Coalesced
 
 DEFAULT_CHUNK = 65536
 
@@ -75,26 +71,6 @@ class WalkTrace:
                 kept = (key, column_index(self.cols, self.loads, n_nodes))
             object.__setattr__(self, "_column_index", kept)
         return kept[1]
-
-    def coalesced(self, f: torch.Tensor, n_nodes: int) -> "Coalesced":
-        """This trace's Φ under modulation ``f`` as one entry per distinct
-        (row, column), with its column index (``features.coalesce``), built
-        on first use and kept on the trace beside the column index.  It
-        depends on ``f`` too, so the key holds ``f`` itself, by a weak
-        reference (a freed ``f`` never matches, even where the allocator
-        gives its address to the next one), with its version and dtype, and
-        the versions of ``cols``, ``loads`` and ``lens``.  A build is a
-        ``walks.column_index`` span, as the column index's is."""
-        key = (n_nodes, self.cols._version, self.loads._version,
-               self.lens._version, f._version, f.dtype)
-        kept = self.__dict__.get("_coalesced")
-        if kept is None or kept[0] != key or kept[1]() is not f:
-            from .features import coalesce
-
-            with obs.span("walks.column_index"):
-                kept = (key, weakref.ref(f), coalesce(self, f, n_nodes))
-            object.__setattr__(self, "_coalesced", kept)
-        return kept[2]
 
 
 @dataclasses.dataclass(frozen=True)

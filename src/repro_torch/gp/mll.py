@@ -123,8 +123,11 @@ def mll_surrogate_loss(
         z = z * obs_mask[:, None]
     b = torch.cat([y[:, None], z], dim=1)
 
+    # The solve is H⁻¹b at a stopped gradient: no_grad records nothing, and
+    # f goes in as it is, needing a gradient, so that the solve reads the
+    # slot payload as the gradient products below do (linops._coalesced).
     with torch.no_grad():
-        h_sg = make_h_operator(trace_x, f.detach(), sigma_n2.detach(), n_nodes)
+        h_sg = make_h_operator(trace_x, f, sigma_n2.detach(), n_nodes)
         sol = solvers.solve(h_sg, b, strategy, x0=x0)
     v = sol.x.detach()
     v_y, v_z = v[:, 0], v[:, 1:]

@@ -56,12 +56,14 @@ class ColumnIndex:
 
 
 def column_index(cols: torch.Tensor, weights: torch.Tensor,
-                 n_nodes: int) -> ColumnIndex:
+                 n_nodes: int, nnz: int | None = None) -> ColumnIndex:
     """Index the slots of ``cols`` [M, K] whose ``weights`` are non-zero.
 
     ``weights`` is the payload's values, or any tensor of its shape that is 0
     wherever the values are (a trace's loads).  Columns must lie in
-    [0, n_nodes)."""
+    [0, n_nodes).  ``nnz``, where the caller knows it, is the number of
+    non-zero ``weights``: the slots are then found without reading their
+    count back to the host."""
     if cols.shape != weights.shape or cols.dim() != 2:
         raise ValueError(f"column_index: cols {tuple(cols.shape)} and weights "
                          f"{tuple(weights.shape)} must be one 2-D shape")
@@ -69,7 +71,9 @@ def column_index(cols: torch.Tensor, weights: torch.Tensor,
         raise ValueError("column_index: the payload or the graph exceeds "
                          "int32 slot and node ids")
     dev = cols.device
-    keep = torch.nonzero(weights.reshape(-1) != 0).reshape(-1)
+    live = weights.reshape(-1) != 0
+    keep = (torch.nonzero(live) if nnz is None
+            else torch.nonzero_static(live, size=nnz)).reshape(-1)
     # A stable sort keeps each column's slots in slot order, so that the
     # kernel's segment sums, and hence its results, are the same every call.
     sorted_cols, perm = torch.sort(cols.reshape(-1)[keep], stable=True)

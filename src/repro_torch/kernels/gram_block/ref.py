@@ -74,23 +74,31 @@ def gram_lookup_ref(g_rows: torch.Tensor, vals_cols: torch.Tensor,
 
 def _kernel_order_sums(same: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """sums[r, a] = Σ_b same[r, a, b]·v[r, b] in the CUDA kernel's order:
-    each chunk of 32 slots in slot order, then the chunks' sums in order,
-    so that the two agree bit for bit (each product is exact: ``same`` is 0
-    or 1, and adding a zero leaves a sum as it is)."""
-    same = same.to(v.dtype)
+    each chunk of 32 slots in slot order (all chunks at once), then the
+    chunks' sums in order.  Bit-equality with the kernel rests on copying
+    that order, not on the sum itself: each product is exact (``same`` is 0
+    or 1), adding a zero leaves a sum as it is, and any other order gives
+    another float32 rounding (``tests/test_torch_gram.py`` holds these sums
+    to an order-free one within float32 tolerance)."""
+    r, k = v.shape
+    chunks = -(-k // 32)
+    pad = chunks * 32 - k
+    s = torch.nn.functional.pad(same.to(v.dtype), (0, pad)).reshape(r, k, chunks, 32)
+    w = torch.nn.functional.pad(v, (0, pad)).reshape(r, 1, chunks, 32)
+    part = torch.zeros((r, k, chunks), dtype=v.dtype, device=v.device)
+    for b in range(32):
+        part = part + s[..., b] * w[..., b]
     total = torch.zeros_like(v)
-    for c0 in range(0, v.shape[1], 32):
-        part = torch.zeros_like(v)
-        for b in range(c0, min(c0 + 32, v.shape[1])):
-            part = part + same[:, :, b] * v[:, b:b + 1]
-        total = total + part
+    for c in range(chunks):
+        total = total + part[..., c]
     return total
 
 
 def aggregate_rows_ref(vals: torch.Tensor, cols: torch.Tensor):
     """Each row's distinct (column, Σ value) entries over its non-zero slots,
     in order of first occurrence — the CUDA kernel's first step, in plain
-    PyTorch, summed in the kernel's order.  vals f32[M, K], cols i32[M, K]
+    PyTorch, summed in the kernel's order (:func:`_kernel_order_sums`), so
+    that the kernel is held to it bit for bit.  vals f32[M, K], cols i32[M, K]
     → (cols i32[M, K], sums f32[M, K], counts i32[M]); entries past a row's
     count are column −1 and value 0.  Since G[i, j] = Σ_c A_i(c)·B_j(c) for
     the aggregated rows A and B, ``gram_block_ref`` of the two aggregated

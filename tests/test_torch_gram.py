@@ -168,6 +168,26 @@ def test_gram_aggregation_twin_matches_jax(jx, shape):
           PLAIN_TOL)
 
 
+@pytest.mark.parametrize("m,k,repeats", [(40, 33, 3), (12, 144, 16),
+                                          (6, 900, 100)])
+def test_aggregation_sums_match_an_order_free_sum(m, k, repeats):
+    """``aggregate_rows_ref`` sums each column's slots in the CUDA kernel's
+    order (chunks of 32, then the chunks); its sums agree with an
+    order-free one, an einsum over the row's slots that share the column,
+    within float32 tolerance, where a row's first column repeats
+    ``repeats`` times (at K = 900, the wind example's step-0 column)."""
+    rng = np.random.default_rng(m * k)
+    vals, cols = payload(rng, m, k, 4 * k)
+    cols[:, ::k // repeats] = cols[:, :1]
+    tv, tc = torch.from_numpy(vals), torch.from_numpy(cols)
+    ac, av, an = ref.aggregate_rows_ref(tv, tc)
+    live = tv != 0
+    same = (ac[:, :, None] == tc[:, None, :]) & live[:, None, :]
+    want = torch.einsum("rab,rb->ra", same.to(torch.float32), tv)
+    assert int(an.max()) < k
+    close(av, want, PLAIN_TOL)
+
+
 def test_gram_dispatch_cpu_is_plain_and_counts_nothing():
     vr, cr, vc, cc = map(torch.from_numpy, _case(SHAPES[0], 1))
     before = dispatch.launch_counts()["gram_block"]

@@ -187,32 +187,32 @@ def test_cache_builds_once_per_trace_and_f(monkeypatch):
     monkeypatch.setattr(features, "coalesce", counted)
     g, _, tx, f = _problem("ring")
     n = g.n_nodes
-    c = tx.coalesced(f, n)
-    assert tx.coalesced(f, n) is c and len(builds) == 1
-    assert tx.coalesced(f, n + 1) is not c and len(builds) == 2
-    c = tx.coalesced(f, n)
+    c = features.coalesced(tx, f, n)
+    assert features.coalesced(tx, f, n) is c and len(builds) == 1
+    assert features.coalesced(tx, f, n + 1) is not c and len(builds) == 2
+    c = features.coalesced(tx, f, n)
     assert len(builds) == 3
     for t in (tx.cols, tx.loads, tx.lens):
         t[0, 0] = t[0, 0]
-        assert tx.coalesced(f, n) is not c
-        c = tx.coalesced(f, n)
+        assert features.coalesced(tx, f, n) is not c
+        c = features.coalesced(tx, f, n)
     assert len(builds) == 6
     f2 = f.clone()
-    assert tx.coalesced(f2, n) is not c and len(builds) == 7
-    c = tx.coalesced(f2, n)
+    assert features.coalesced(tx, f2, n) is not c and len(builds) == 7
+    c = features.coalesced(tx, f2, n)
     f2.mul_(1.0)
-    assert tx.coalesced(f2, n) is not c and len(builds) == 8
+    assert features.coalesced(tx, f2, n) is not c and len(builds) == 8
     # A freed f, and a new tensor at its address with its version and
     # dtype: two views of one buffer share storage and version counter.
     buf = f.repeat(2)
     f3 = buf[:f.shape[0]]
-    c = tx.coalesced(f3, n)
+    c = features.coalesced(tx, f3, n)
     ptr, version = f3.data_ptr(), f3._version
     del f3
     gc.collect()
     f4 = buf[:f.shape[0]]
     assert (f4.data_ptr(), f4._version, f4.dtype) == (ptr, version, f.dtype)
-    assert tx.coalesced(f4, n) is not c and len(builds) == 10
+    assert features.coalesced(tx, f4, n) is not c and len(builds) == 10
 
 
 # --------------------------------------------------------------------------
@@ -281,6 +281,41 @@ def test_other_calls_take_todays_path(monkeypatch, why):
     assert torch.equal(got, want)
     assert "_coalesced" not in tx.__dict__
     assert _counter("khat.coalesced_products") == 0
+
+
+@pytest.mark.parametrize("warm", [False, True])
+def test_fit_keeps_the_slot_path(as_on_card, monkeypatch, warm):
+    """The LML fit's steps, its CG solve at a stopped gradient included,
+    read the slot payload on the card as on the CPU: nothing is coalesced or
+    counted, and the fitted parameters and history are the CPU path's bit
+    for bit."""
+    from repro_torch import solvers
+    from repro_torch.gp import mll
+
+    g, _, tx, _ = _problem("ring")
+    n = g.n_nodes
+    mod = modulation.diffusion(8)
+    y = torch.randn((tx.n_nodes,), generator=torch.Generator().manual_seed(8))
+    strategy = solvers.MLL_DEFAULT.with_(warm_start=warm)
+
+    def fit(trace):
+        return mll.fit_hyperparams(trace, mod, y, n,
+                                   torch.Generator().manual_seed(9), steps=3,
+                                   chunk=3, n_probes=4, strategy=strategy)
+
+    obs.enable()
+    got = fit(tx)
+    assert "_coalesced" not in tx.__dict__
+    assert _counter("khat.coalesced_products") == 0
+    assert _counter("khat.coalesce.count") == 0
+    monkeypatch.setattr(linops, "_on_card", lambda t: False)
+    want = fit(features.take_rows(tx, torch.arange(tx.n_nodes)))
+    assert got.history == want.history
+    for a, b in ((got.params["mod"]["log_beta"], want.params["mod"]["log_beta"]),
+                 (got.params["mod"]["log_sigma_f"],
+                  want.params["mod"]["log_sigma_f"]),
+                 (got.params["log_sigma_n"], want.params["log_sigma_n"])):
+        assert torch.equal(a, b)
 
 
 def test_posterior_request_builds_once_and_reads_it_everywhere(as_on_card,

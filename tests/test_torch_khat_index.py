@@ -149,6 +149,19 @@ def test_column_index_invariants(case):
         assert bool((part[1:] > part[:-1]).all())
 
 
+@pytest.mark.parametrize("case", CASES[:4] + CASES[8:], ids=_ids)
+def test_column_index_sized_by_a_known_count(case):
+    """Given the number of non-zero weights, the index finds the same slots
+    without reading their count back: the same index, field for field."""
+    _, _, vc, cc, _ = _torch(case, _case(case, seed=2))
+    n = case[4]
+    want = kindex.column_index(cc, vc, n)
+    got = kindex.column_index(cc, vc, n, nnz=int((vc != 0).sum()))
+    for name in ("uniq", "order", "seg", "node_map"):
+        assert torch.equal(getattr(got, name), getattr(want, name))
+    assert got.shape == want.shape
+
+
 def test_column_index_refuses_mismatched_shapes():
     with pytest.raises(ValueError, match="one 2-D shape"):
         kindex.column_index(torch.zeros((3, 4), dtype=torch.int32),
