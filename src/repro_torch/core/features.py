@@ -207,16 +207,21 @@ def khat_diag_exact(trace: WalkTrace, f: torch.Tensor) -> torch.Tensor:
 
 
 def _sample_chunk_vals(graph, f, seed, start, chunk, n_rows, cfg):
-    """Sample one block; returns (cols, vals) with padded rows zeroed."""
+    """Sample one block; returns (cols, vals) with padded rows zeroed.  The
+    sampling is a ``walks.sample`` span, as each block of
+    ``walks.walk_chunks`` is."""
     dev = graph.device
     idx = torch.arange(chunk, device=dev)
     valid = (idx < n_rows).to(torch.float32)
     nodes = torch.clamp(start + idx, max=graph.n_nodes - 1).to(torch.int32)
-    cols, loads, lens = dispatch.walk_sample(
-        graph.neighbors, graph.weights, graph.deg, nodes, seed,
-        n_walkers=cfg.n_walkers, p_halt=cfg.p_halt, l_max=cfg.l_max,
-        reweight=cfg.reweight, scheme=cfg.scheme,
-    )
+    with obs.span("walks.sample", rows=chunk, scheme=cfg.scheme,
+                  chunk_start=start) as sp:
+        cols, loads, lens = dispatch.walk_sample(
+            graph.neighbors, graph.weights, graph.deg, nodes, seed,
+            n_walkers=cfg.n_walkers, p_halt=cfg.p_halt, l_max=cfg.l_max,
+            reweight=cfg.reweight, scheme=cfg.scheme,
+        )
+        sp.block_on((cols, loads, lens))
     vals = (loads * valid[:, None]).to(f.dtype) * f[lens]
     return cols, vals
 
