@@ -60,7 +60,11 @@ non-zero exit and no result line):
                pathwise_samples on the monolithic trace and
                pathwise_samples_chunked (chunk 65536).  Launch counts are set
                to 0 just before and read just after; every kernel must have
-               launched, CG must converge, chunked must equal monolithic.
+               launched (walk_sampler_vals: the chunks' walks), CG must
+               converge, chunked must equal monolithic; walk_sample_vals
+               bit-equal to its plain version and to walk_sample then
+               (loads·valid)·f[lens] at the first and the padded last
+               chunk, every scheme.
                Then each call again, warm (median of 3), and one
                torch.profiler pass for each call's device busy time, whose
                share of the warm wall time is the card's busy share.
@@ -205,8 +209,8 @@ non-zero exit and no result line):
                sharded_cg_solve_chunked (chunk 65536) on the main-path trace
                within 1e-4 of scale of the single-device solve, and
                sharded_posterior_sample over its 1024 rows, finite, with
-               ell_spmv, ell_spmv_t and walk_sampler launched and khat_fused
-               not; then the fleet in a child process under kill_at:5
+               ell_spmv, ell_spmv_t and walk_sampler_vals (the chunked
+               solve's walks) launched and khat_fused not; then the fleet in a child process under kill_at:5
                exits 113 at 'serving.fleet.observe' with the killed observe
                journalled, and recover() equals the journalled fold bit for
                bit on 256 nodes.
@@ -241,7 +245,9 @@ non-zero exit and no result line):
                walk_sampler at the monolithic trace, one chunk of 65536
                rows and the wide K = 144 trace, bit-equal to the plain
                version for every scheme at each, the bound counting the
-               adjacency rows of the nodes the walks visit;
+               adjacency rows of the nodes the walks visit, and its vals
+               entry at the chunk, bit-equal to its plain version for every
+               scheme, beside the composition it replaces;
                gram_block at each of its seven shapes, the Nyström pivot
                column among them, each against torch.sparse.mm;
                woodbury_apply at T = 4000 for r in {64, 128, 256} and R in
@@ -1020,11 +1026,12 @@ def phase_main(dev) -> dict:
     out = run_path(MAIN, dev, dev, timings)
     counts = dispatch.launch_counts()
     record_shapes("main")
-    for name in ("walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused",
-                 "gram_aggregate"):
+    for name in ("walk_sampler", "walk_sampler_vals", "ell_spmv", "ell_spmv_t",
+                 "khat_fused", "gram_aggregate"):
         expect(counts[name] > 0, f"main path never launched {name}")
     check_path_outputs(out, MAIN, "main")
     check_coalesce_main(out["seed"], dev)
+    check_chunk_vals_main(out["seed"], dev)
     warm = warm_times(out["calls"], dev)
     for label, t in timings.items():
         print(f"[main] {label}: first call {t['s'] * 1e3:.1f} ms, warm median "
@@ -1064,6 +1071,49 @@ def check_coalesce_main(seed, dev) -> None:
     print(f"[main] coalesced training payload [{tx.n_nodes}, {tx.slots}] -> "
           f"{tuple(got.vals.shape)} on the card equals the plain build bit for "
           f"bit (values, columns, index); kept {kept} of {live} live slots")
+
+
+def check_chunk_vals_main(seed, dev) -> None:
+    """The chunked products' (cols, vals) as the sampler writes them
+    (walk_sample_vals_launch) on the card, bit for bit, against its plain
+    version (walk_sample_vals_ref) and against the composition it replaces
+    (walk_sample, then (loads·valid)·f[lens]), for every scheme: the main
+    path's first chunk and its padded last one."""
+    import torch
+
+    from repro_torch.kernels import dispatch
+    from repro_torch.kernels.walk_sampler import ref, rng
+
+    graph, wcfg, f, _, _ = make_problem(MAIN, dev)
+    n, chunk = graph.n_nodes, MAIN["chunk"]
+    last = (n - 1) // chunk * chunk
+    kw = dict(n_walkers=wcfg.n_walkers, p_halt=wcfg.p_halt, l_max=wcfg.l_max)
+    gargs = (graph.neighbors, graph.weights, graph.deg)
+    idx = torch.arange(chunk, device=dev)
+    for start in (0, last):
+        n_valid = min(n - start, chunk)
+        nodes = torch.clamp(start + idx, max=n - 1).to(torch.int32)
+        valid = (idx < n_valid).to(torch.float32)
+        for scheme in rng.SCHEMES:
+            where = f"rows {start}+{chunk} ({n_valid} valid), {scheme}"
+            cols, vals = dispatch.walk_sample_vals(
+                *gargs, nodes, f, n_valid, seed, **kw, scheme=scheme)
+            plain_c, plain_v = ref.walk_sample_vals_ref(
+                *gargs, nodes, f, n_valid, seed, **kw, scheme=scheme)
+            expect(torch.equal(cols, plain_c) and torch.equal(vals, plain_v),
+                   f"main: walk_sample_vals at {where}, differs from its plain "
+                   f"version")
+            del plain_c, plain_v
+            want_c, loads, lens = dispatch.walk_sample(
+                *gargs, nodes, seed, **kw, scheme=scheme)
+            want_v = (loads * valid[:, None]).to(f.dtype) * f[lens]
+            expect(torch.equal(cols, want_c) and torch.equal(vals, want_v),
+                   f"main: walk_sample_vals at {where}, differs from the "
+                   f"composed values")
+    print(f"[main] walk_sample_vals [{chunk}, {wcfg.slots}] equals its plain "
+          f"version and walk_sample then (loads·valid)·f[lens] bit for bit, "
+          f"{len(rng.SCHEMES)} schemes, at the first chunk and the last "
+          f"({n - last} valid rows)")
 
 
 def phase_e2e(dev) -> None:
@@ -4394,7 +4444,7 @@ def phase_fleet(dev) -> dict:
         mask[train.long()] = 1.0
         y_full = torch.zeros(MAIN["n_nodes"], device=dev)
         y_full[train.long()] = y
-        gp = part("fleet distributed", ("ell_spmv", "ell_spmv_t", "walk_sampler"),
+        gp = part("fleet distributed", ("ell_spmv", "ell_spmv_t", "walk_sampler_vals"),
                   sharded_gp, absent=("khat_fused",))
         for label in ("sharded_cg_solve", "sharded_cg_solve_chunked"):
             x, iters, conv, wall = gp[label]
@@ -4979,7 +5029,8 @@ def phase_timing(dev, results: dict) -> list[dict]:
 
     # 1. Walk sampling at its three shapes; then the monolithic trace again
     # for the products below.
-    rows.append(timing_walks(dev, graph, seed, counts["walk_sampler"],
+    rows.append(timing_walks(dev, graph, seed,
+                             counts["walk_sampler"] + counts["walk_sampler_vals"],
                              extra=results["parity-baselines"]["walk_sampler"]))
     got = wops.walk_sample(*gargs, **wkw)
     k = wcfg.slots
@@ -5172,26 +5223,37 @@ def shapes_summed(name: str) -> dict[str, int]:
 
 
 def walk_shape(dev, graph, seed: int, label: str, cfg: dict, m: int,
-               reps: int) -> dict:
+               reps: int, vals: bool = False) -> dict:
     """walk_sampler over the first ``m`` nodes of ``graph``: bit-equal to
     the plain version for every scheme, device time as graph replays (few:
     a replayed graph keeps every call's outputs) and an eager loop, the
     plain version's time, and the bound: the outputs written once and the
     adjacency row and degree of each node the walks visit (counted from
-    this run's cols)."""
+    this run's cols).  With ``vals``, the vals entry (the chunked products'
+    walks: cols and vals, 8 B a slot, in place of cols, loads and lens, 12
+    B) against walk_sample_vals_ref, timed beside the composition it
+    replaces (walk_sample, then (loads·valid)·f[lens])."""
     import torch
 
+    from repro_torch.core import modulation
     from repro_torch.kernels.walk_sampler import ops, ref, rng
 
     d = graph.max_deg
     nodes = torch.arange(m, dtype=torch.int32, device=dev)
     kw = dict(n_walkers=cfg["n_walkers"], p_halt=cfg["p_halt"], l_max=cfg["l_max"])
     args = (graph.neighbors, graph.weights, graph.deg, nodes, seed)
+    entry, plain, extra = ops.walk_sample, ref.walk_sample_ref, {}
+    if vals:
+        mod = modulation.diffusion(l_max=cfg["l_max"])
+        f = mod(mod.init(device=dev)).detach()
+        args = (graph.neighbors, graph.weights, graph.deg, nodes, f, m, seed)
+        entry, plain = ops.walk_sample_vals, ref.walk_sample_vals_ref
     for scheme in rng.SCHEMES:
-        got = ops.walk_sample(*args, **kw, scheme=scheme)
-        want = ref.walk_sample_ref(*args, **kw, scheme=scheme)
+        got = entry(*args, **kw, scheme=scheme)
+        want = plain(*args, **kw, scheme=scheme)
         expect(all(torch.equal(a, b) for a, b in zip(got, want)),
-               f"walk_sampler {label}: {scheme} differs from the plain version")
+               f"walk_sampler {label}{', vals' * vals}: {scheme} differs from "
+               f"the plain version")
         if scheme == "iid":
             seen = torch.zeros(graph.n_nodes, dtype=torch.bool, device=dev)
             seen[got[0].reshape(-1).long()] = True
@@ -5199,17 +5261,34 @@ def walk_shape(dev, graph, seed: int, label: str, cfg: dict, m: int,
             del seen
         del got, want
     k = cfg["n_walkers"] * (cfg["l_max"] + 1)
-    fn = lambda: ops.walk_sample(*args, **kw)   # noqa: E731
+    fn = lambda: entry(*args, **kw)   # noqa: E731
     ms, eager = graph_ms(fn, reps), cuda_ms(fn, max(reps, 5))
-    pms = cuda_ms(lambda: ref.walk_sample_ref(*args, **kw), 2, warmup=1)
-    b = bound(3 * m * k * 4 + m * 4 + visited * (d * 8 + 4), m * k * 6)
-    print(f"[timing] walk_sampler {label} [{m}, {k}] ({cfg['n_walkers']} walkers, "
-          f"l_max {cfg['l_max']}): kernel {ms:.4f} ms (graph; eager loop "
-          f"{eager:.4f} ms), plain {pms:.4f} ms, bound {b[0]:.4f} ms ({b[1]}; "
-          f"{visited} nodes visited), bit-equal for {len(rng.SCHEMES)} schemes")
+    pms = cuda_ms(lambda: plain(*args, **kw), 2, warmup=1)
+    outs = 2 if vals else 3
+    b = bound(outs * m * k * 4 + m * 4 + visited * (d * 8 + 4),
+              m * k * (7 if vals else 6))
+    note = ""
+    if vals:
+        wargs = (graph.neighbors, graph.weights, graph.deg, nodes, seed)
+        valid = torch.ones(m, dtype=torch.float32, device=dev)
+
+        def composed():
+            _, loads, lens = ops.walk_sample(*wargs, **kw)
+            return (loads * valid[:, None]).to(f.dtype) * f[lens]
+
+        extra = dict(entry="walk_sample_vals_launch",
+                     composed_ms=cuda_ms(composed, max(reps, 5)))
+        note = (f", walk_sample + the vals build {extra['composed_ms']:.4f} ms "
+                f"(eager)")
+    print(f"[timing] walk_sampler {label}{', vals entry' * vals} [{m}, {k}] "
+          f"({cfg['n_walkers']} walkers, l_max {cfg['l_max']}): kernel {ms:.4f} "
+          f"ms (graph; eager loop {eager:.4f} ms), plain {pms:.4f} ms{note}, "
+          f"bound {b[0]:.4f} ms ({b[1]}; {visited} nodes visited), bit-equal "
+          f"for {len(rng.SCHEMES)} schemes")
     torch.cuda.empty_cache()
     return dict(shape=[m, k], ms=ms, eager_ms=eager, plain_ms=pms,
-                bound_ms=b[0], bound_by=b[1], visited=visited, max_abs_err=0.0)
+                bound_ms=b[0], bound_by=b[1], visited=visited, max_abs_err=0.0,
+                **extra)
 
 
 def timing_walks(dev, graph, seed: int, launches: int, extra=()) -> dict:
@@ -5220,6 +5299,9 @@ def timing_walks(dev, graph, seed: int, launches: int, extra=()) -> dict:
         k = cfg["n_walkers"] * (cfg["l_max"] + 1)
         reps = 40 if m < graph.n_nodes else (5 if k <= 48 else 3)
         shapes.append(walk_shape(dev, graph, seed, label, cfg, m, reps))
+        if label == "chunk":
+            shapes.append(walk_shape(dev, graph, seed, label, cfg, m, reps,
+                                     vals=True))
     shapes += list(extra)
     head = shapes[0]
     by_shape = shapes_summed("walk_sampler")

@@ -27,6 +27,7 @@ from .. import obs
 from ..graphs.formats import Graph
 from ..kernels import dispatch
 from ..kernels.ell_spmv.index import ColumnIndex, column_index
+from ..obs import taps as _obs_taps
 from .walks import WalkConfig, WalkTrace
 
 
@@ -209,19 +210,34 @@ def khat_diag_exact(trace: WalkTrace, f: torch.Tensor) -> torch.Tensor:
 def _sample_chunk_vals(graph, f, seed, start, chunk, n_rows, cfg):
     """Sample one block; returns (cols, vals) with padded rows zeroed.  The
     sampling is a ``walks.sample`` span, as each block of
-    ``walks.walk_chunks`` is."""
+    ``walks.walk_chunks`` is.
+
+    With a float32 f that needs no gradient, the sampler writes vals itself
+    (``dispatch.walk_sample_vals``; its plain version on the CPU);
+    otherwise (a bf16 f, an f under a fit's gradient) vals is composed from
+    the sampled loads and lens.  Each block counts into
+    ``walks.chunk_values`` under ``path`` ``"sampler"`` or
+    ``"composed"``."""
     dev = graph.device
     idx = torch.arange(chunk, device=dev)
-    valid = (idx < n_rows).to(torch.float32)
     nodes = torch.clamp(start + idx, max=graph.n_nodes - 1).to(torch.int32)
+    walk_kw = dict(n_walkers=cfg.n_walkers, p_halt=cfg.p_halt, l_max=cfg.l_max,
+                   reweight=cfg.reweight, scheme=cfg.scheme)
+    fused = f.dtype == torch.float32 and not f.requires_grad
+    _obs_taps.count("walks.chunk_values",
+                    labels={"path": "sampler" if fused else "composed"})
     with obs.span("walks.sample", rows=chunk, scheme=cfg.scheme,
                   chunk_start=start) as sp:
+        if fused:
+            cols, vals = dispatch.walk_sample_vals(
+                graph.neighbors, graph.weights, graph.deg, nodes, f,
+                min(n_rows, chunk), seed, **walk_kw)
+            sp.block_on((cols, vals))
+            return cols, vals
         cols, loads, lens = dispatch.walk_sample(
-            graph.neighbors, graph.weights, graph.deg, nodes, seed,
-            n_walkers=cfg.n_walkers, p_halt=cfg.p_halt, l_max=cfg.l_max,
-            reweight=cfg.reweight, scheme=cfg.scheme,
-        )
+            graph.neighbors, graph.weights, graph.deg, nodes, seed, **walk_kw)
         sp.block_on((cols, loads, lens))
+    valid = (idx < n_rows).to(torch.float32)
     vals = (loads * valid[:, None]).to(f.dtype) * f[lens]
     return cols, vals
 

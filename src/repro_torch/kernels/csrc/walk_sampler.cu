@@ -26,6 +26,13 @@
 // is 1.44·10⁹) and 64-bit beyond; the walker hash's first two rounds depend
 // on (seed, node, walker) only and are computed once per walk.
 //
+// The chunked Φ products want each slot's feature value load·f[step], not
+// the (load, step) pair.  The `Vals` instance (walk_sample_vals_launch)
+// stages (load·inv_n)·f[step] where the other stages the load, writes it
+// through `loads` and writes no `lens`: 8 bytes a slot instead of 12, and no
+// elementwise pass over the chunk afterwards.  Walks of rows at or past the
+// valid count (a padded last chunk) run as usual and deposit 0.
+//
 // Bit-exactness with the JAX reference: XLA compiles the reference's
 // division by the constant (1 − p_halt) and by n_walkers into
 // multiplications by the float32 reciprocals, so a move is
@@ -73,14 +80,16 @@ __device__ __forceinline__ float to_uniform(uint32_t bits) {
 
 enum Scheme { IID = 0, ANTITHETIC = 1, QMC = 2, GRFSPP = 3 };
 
-template <typename Idx>
+// Vals: `loads` receives load·f[step] (0 for walks at or past valid_walks)
+// and `lens` is not written.
+template <typename Idx, bool Vals>
 __global__ void __launch_bounds__(MAX_THREADS) walk_sample_kernel(
     const int* __restrict__ nbr, const float* __restrict__ wgt,
     const int* __restrict__ deg, const int* __restrict__ nodes,
     int* __restrict__ cols, float* __restrict__ loads, int* __restrict__ lens,
     Idx walks, int max_deg, int n_walkers, int steps, uint32_t seed,
     int scheme, int reweight, float inv_c, float p_halt, float inv_n,
-    StepWeights sw) {
+    StepWeights sw, const float* __restrict__ f, Idx valid_walks) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int nt = blockDim.x;
   int* cs = reinterpret_cast<int*>(smem);     // [nt · steps] cols
@@ -103,13 +112,22 @@ __global__ void __launch_bounds__(MAX_THREADS) walk_sample_kernel(
     int* my_c = cs + threadIdx.x * steps;
     float* my_l = ls + threadIdx.x * steps;
 
+    bool live = true;
+    if constexpr (Vals) live = tid < valid_walks;
+
     int cur = start;
     float load = 1.0f, alive = 1.0f;
     for (int step = 0; step < steps; ++step) {
       my_c[step] = cur;
       float dep = load * alive;
       if (scheme == GRFSPP) dep = dep * sw.w[step];
-      my_l[step] = dep * inv_n;
+      if constexpr (Vals) {
+        // Two products, as (loads * valid) * f[lens] forms them.
+        const float dn = dep * inv_n;
+        my_l[step] = live ? dn * __ldg(f + step) : 0.0f;
+      } else {
+        my_l[step] = dep * inv_n;
+      }
 
       const float u = to_uniform(hash_ctr(pre_move, 2u * step));
       const int d = deg[cur];
@@ -153,23 +171,19 @@ __global__ void __launch_bounds__(MAX_THREADS) walk_sample_kernel(
   for (int q = threadIdx.x; q < n4; q += nt) {
     c4[q] = cs4[q];
     l4[q] = ls4[q];
-    const int l0 = (4 * q) % steps;
-    const int l1 = l0 + 1 == steps ? 0 : l0 + 1;
-    const int l2 = l1 + 1 == steps ? 0 : l1 + 1;
-    const int l3 = l2 + 1 == steps ? 0 : l2 + 1;
-    s4[q] = make_int4(l0, l1, l2, l3);
+    if constexpr (!Vals) {
+      const int l0 = (4 * q) % steps;
+      const int l1 = l0 + 1 == steps ? 0 : l0 + 1;
+      const int l2 = l1 + 1 == steps ? 0 : l1 + 1;
+      const int l3 = l2 + 1 == steps ? 0 : l2 + 1;
+      s4[q] = make_int4(l0, l1, l2, l3);
+    }
   }
   for (int e = 4 * n4 + threadIdx.x; e < n; e += nt) {
     cols[base + e] = cs[e];
     loads[base + e] = ls[e];
-    lens[base + e] = e % steps;
+    if constexpr (!Vals) lens[base + e] = e % steps;
   }
-}
-
-extern "C" {
-
-const char* repro_cuda_error_string(int code) {
-  return cudaGetErrorString((cudaError_t)code);
 }
 
 // Threads per block for walks of `steps` slots: 256, or fewer (a multiple
@@ -179,13 +193,13 @@ static int walk_sample_threads(int steps) {
   return nt < MAX_THREADS ? nt : MAX_THREADS;
 }
 
-// cols, loads, lens: 16-byte aligned [m_rows, n_walkers·(l_max+1)].
-int walk_sample_launch(const void* nbr, const void* wgt, const void* deg,
-                       const void* nodes, void* cols, void* loads, void* lens,
-                       long long m_rows, int max_deg, int n_walkers, int l_max,
-                       unsigned int seed, int scheme, int reweight, float inv_c,
-                       float p_halt, float inv_n, const float* step_weights,
-                       void* stream) {
+template <bool Vals>
+static int launch(const void* nbr, const void* wgt, const void* deg,
+                  const void* nodes, const void* f, void* cols, void* loads,
+                  void* lens, long long m_rows, long long n_valid, int max_deg,
+                  int n_walkers, int l_max, unsigned int seed, int scheme,
+                  int reweight, float inv_c, float p_halt, float inv_n,
+                  const float* step_weights, void* stream) {
   if (l_max + 1 > MAX_STEPS || n_walkers < 1) return (int)cudaErrorInvalidValue;
   if (((uintptr_t)cols | (uintptr_t)loads | (uintptr_t)lens) & 15)
     return (int)cudaErrorMisalignedAddress;
@@ -193,6 +207,7 @@ int walk_sample_launch(const void* nbr, const void* wgt, const void* deg,
   for (int i = 0; i < MAX_STEPS; ++i) sw.w[i] = i <= l_max ? step_weights[i] : 0.0f;
   const long long walks = m_rows * n_walkers;
   if (walks == 0) return (int)cudaSuccess;
+  const long long valid = (n_valid < m_rows ? n_valid : m_rows) * n_walkers;
   const int steps = l_max + 1;
   const int nt = walk_sample_threads(steps);
   const long long blocks = (walks + nt - 1) / nt;
@@ -200,18 +215,51 @@ int walk_sample_launch(const void* nbr, const void* wgt, const void* deg,
   const size_t smem = (size_t)nt * steps * 8;
   cudaStream_t st = (cudaStream_t)stream;
   if (walks * steps < 0x7FFFFFFFLL) {
-    walk_sample_kernel<unsigned int><<<(unsigned int)blocks, nt, smem, st>>>(
+    walk_sample_kernel<unsigned int, Vals><<<(unsigned int)blocks, nt, smem, st>>>(
         (const int*)nbr, (const float*)wgt, (const int*)deg, (const int*)nodes,
         (int*)cols, (float*)loads, (int*)lens, (unsigned int)walks, max_deg,
-        n_walkers, steps, seed, scheme, reweight, inv_c, p_halt, inv_n, sw);
+        n_walkers, steps, seed, scheme, reweight, inv_c, p_halt, inv_n, sw,
+        (const float*)f, (unsigned int)valid);
   } else {
-    walk_sample_kernel<unsigned long long><<<(unsigned int)blocks, nt, smem, st>>>(
+    walk_sample_kernel<unsigned long long, Vals><<<(unsigned int)blocks, nt, smem, st>>>(
         (const int*)nbr, (const float*)wgt, (const int*)deg, (const int*)nodes,
         (int*)cols, (float*)loads, (int*)lens, (unsigned long long)walks,
         max_deg, n_walkers, steps, seed, scheme, reweight, inv_c, p_halt,
-        inv_n, sw);
+        inv_n, sw, (const float*)f, (unsigned long long)valid);
   }
   return (int)cudaGetLastError();
+}
+
+extern "C" {
+
+const char* repro_cuda_error_string(int code) {
+  return cudaGetErrorString((cudaError_t)code);
+}
+
+// cols, loads, lens: 16-byte aligned [m_rows, n_walkers·(l_max+1)].
+int walk_sample_launch(const void* nbr, const void* wgt, const void* deg,
+                       const void* nodes, void* cols, void* loads, void* lens,
+                       long long m_rows, int max_deg, int n_walkers, int l_max,
+                       unsigned int seed, int scheme, int reweight, float inv_c,
+                       float p_halt, float inv_n, const float* step_weights,
+                       void* stream) {
+  return launch<false>(nbr, wgt, deg, nodes, nullptr, cols, loads, lens, m_rows,
+                       m_rows, max_deg, n_walkers, l_max, seed, scheme, reweight,
+                       inv_c, p_halt, inv_n, step_weights, stream);
+}
+
+// cols, vals: 16-byte aligned [m_rows, n_walkers·(l_max+1)]; f: the l_max+1
+// float32 modulation values on the device; vals is 0 on rows ≥ n_valid.
+int walk_sample_vals_launch(const void* nbr, const void* wgt, const void* deg,
+                            const void* nodes, const void* f, void* cols,
+                            void* vals, long long m_rows, long long n_valid,
+                            int max_deg, int n_walkers, int l_max,
+                            unsigned int seed, int scheme, int reweight,
+                            float inv_c, float p_halt, float inv_n,
+                            const float* step_weights, void* stream) {
+  return launch<true>(nbr, wgt, deg, nodes, f, cols, vals, nullptr, m_rows,
+                      n_valid, max_deg, n_walkers, l_max, seed, scheme,
+                      reweight, inv_c, p_halt, inv_n, step_weights, stream);
 }
 
 }  // extern "C"

@@ -12,11 +12,12 @@ Every product is differentiable in its values and its dense operand
 (autograd Functions in the kernels' ``ops.py``); the casts here stay
 differentiable around them.
 
-:func:`walk_sample` counts its rows, walkers and calls into the obs
-registry (when enabled) with the labels ``{"scheme", "backend"}`` of the
-JAX package.  With no backend registry here, ``backend`` holds the device
-type of the call's tensors — ``"cuda"`` (the kernel) or ``"cpu"`` (the
-plain version) — everywhere the port writes that label.
+:func:`walk_sample` and :func:`walk_sample_vals` count their rows, walkers
+and calls into the obs registry (when enabled) with the labels
+``{"scheme", "backend"}`` of the JAX package.  With no backend registry
+here, ``backend`` holds the device type of the call's tensors — ``"cuda"``
+(the kernel) or ``"cpu"`` (the plain version) — everywhere the port writes
+that label.
 """
 from __future__ import annotations
 
@@ -100,12 +101,7 @@ def walk_sample(neighbors, weights, deg, nodes, seed: int, *, n_walkers: int,
 
     The counter RNG is keyed on the absolute start-node id, so the result
     does not depend on how ``nodes`` is chunked across calls."""
-    labels = {"scheme": scheme, "backend": nodes.device.type}
-    rows = int(nodes.shape[0])
-    _obs_taps.count("walks.rows_sampled", n=rows, labels=labels)
-    _obs_taps.count("walks.walkers_launched", n=rows * int(n_walkers),
-                    labels=labels)
-    _obs_taps.count("walks.sample_calls", labels=labels)
+    _count_walks(nodes, n_walkers, scheme)
     return walk_ops.walk_sample(
         neighbors.contiguous(), weights.to(torch.float32).contiguous(),
         deg.contiguous(), nodes.to(torch.int32).contiguous(), seed,
@@ -114,15 +110,40 @@ def walk_sample(neighbors, weights, deg, nodes, seed: int, *, n_walkers: int,
     )
 
 
+def walk_sample_vals(neighbors, weights, deg, nodes, f, n_valid: int,
+                     seed: int, *, n_walkers: int, p_halt: float, l_max: int,
+                     reweight: bool = True, scheme: str = "iid"):
+    """(cols, vals): the walks of :func:`walk_sample` with the modulation
+    applied in the sampler, vals = load·f[step], 0 on rows ``n_valid`` and
+    past — one launch, equal to ``(loads·valid)·f[lens]`` bit for bit.
+    ``f`` is float32 (a chunked Φ product's modulation)."""
+    _count_walks(nodes, n_walkers, scheme)
+    return walk_ops.walk_sample_vals(
+        neighbors.contiguous(), weights.to(torch.float32).contiguous(),
+        deg.contiguous(), nodes.to(torch.int32).contiguous(), f.contiguous(),
+        n_valid, seed, n_walkers=n_walkers, p_halt=p_halt, l_max=l_max,
+        reweight=reweight, scheme=scheme,
+    )
+
+
+def _count_walks(nodes, n_walkers: int, scheme: str) -> None:
+    labels = {"scheme": scheme, "backend": nodes.device.type}
+    rows = int(nodes.shape[0])
+    _obs_taps.count("walks.rows_sampled", n=rows, labels=labels)
+    _obs_taps.count("walks.walkers_launched", n=rows * int(n_walkers),
+                    labels=labels)
+    _obs_taps.count("walks.sample_calls", labels=labels)
+
+
 def launch_counts() -> dict[str, int]:
     """Kernel launches per kernel since the last :func:`reset_launch_counts`."""
     return {k: v for counts in _COUNTERS for k, v in counts.items()}
 
 
 def launch_shapes() -> dict[str, dict[tuple, int]]:
-    """Launches by shape since the last reset: ``walk_sampler`` by (M, K),
-    ``woodbury_apply`` by (T, r, columns), ``ell_spmv`` and ``ell_spmv_t``
-    by (M, K, R)."""
+    """Launches by shape since the last reset: ``walk_sampler`` by (M, K)
+    (both of its entries), ``woodbury_apply`` by (T, r, columns),
+    ``ell_spmv`` and ``ell_spmv_t`` by (M, K, R)."""
     return {"walk_sampler": dict(walk_ops.BY_SHAPE),
             "woodbury_apply": dict(wood_ops.BY_SHAPE),
             **{name: dict(by) for name, by in ell_ops.BY_SHAPE.items()}}

@@ -108,3 +108,14 @@ def walk_block(
 
 # The plain version is the whole problem as one block.
 walk_sample_ref = walk_block
+
+
+def walk_sample_vals_ref(neighbors, weights, deg, nodes, f, n_valid: int,
+                         seed: int, **kw):
+    """(cols, vals) of the kernel's ``walk_sample_vals_launch``: the walks
+    of :func:`walk_block`, then vals = (loads·valid)·f[lens] with valid 0 on
+    rows ``n_valid`` and past."""
+    cols, loads, lens = walk_block(neighbors, weights, deg, nodes, seed, **kw)
+    valid = (torch.arange(nodes.shape[0], device=loads.device)
+             < n_valid).to(torch.float32)
+    return cols, (loads * valid[:, None]).to(f.dtype) * f[lens]

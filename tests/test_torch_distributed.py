@@ -225,8 +225,9 @@ def test_gpu_sharded_solves_at_world_size_one(nccl_mesh):
     """The three sharded solvers on the card under NCCL: the sharded CG
     within 1e-4 of scale of the single-device solve (the fused K̂ kernel
     there, the ELL pair here), the chunked solve at chunk 1024 likewise, the
-    posterior sample finite; the ELL kernels and the walk sampler launched,
-    the fused K̂ kernel never inside the sharded calls."""
+    posterior sample finite; the ELL kernels and the walk sampler (its vals
+    entry: the chunked solve's walks) launched, the fused K̂ kernel never
+    inside the sharded calls."""
     from repro_torch import solvers
     from repro_torch.core import linops, modulation, walks
     from repro_torch.distributed import gp_shard as G
@@ -256,6 +257,6 @@ def test_gpu_sharded_solves_at_world_size_one(nccl_mesh):
                                    .manual_seed(5), nccl_mesh, sigma_n2=0.05)
     assert s.shape == (4096,) and bool(torch.isfinite(s).all())
     counts = dispatch.launch_counts()
-    for name in ("ell_spmv", "ell_spmv_t", "walk_sampler"):
+    for name in ("ell_spmv", "ell_spmv_t", "walk_sampler_vals"):
         assert counts[name] > 0, name
     assert counts["khat_fused"] == 0

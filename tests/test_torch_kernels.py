@@ -185,8 +185,8 @@ def test_mixed_devices_raise():
 def test_launch_counters_reset():
     dispatch.reset_launch_counts()
     assert set(dispatch.launch_counts()) == {
-        "walk_sampler", "ell_spmv", "ell_spmv_t", "khat_fused", "gram_block",
-        "gram_aggregate", "woodbury_apply", "flash_attention", "flash_attention_tensor_core",
+        "walk_sampler", "walk_sampler_vals", "ell_spmv", "ell_spmv_t",
+        "khat_fused", "gram_block", "gram_aggregate", "woodbury_apply", "flash_attention", "flash_attention_tensor_core",
         "flash_attention_cuda_core", "rmsnorm"}
     assert all(c == 0 for c in dispatch.launch_counts().values())
 
